@@ -1,0 +1,451 @@
+"""Krylov solvers, main-path subset (PyTorch twin of
+`saddle_point_petsc_tpu.solvers.krylov`): CG, MINRES, GMRES and FGMRES.
+
+A vector is a tensor or a tuple of tensors (a KKT vector is `(u, lam)`);
+operators and preconditioners are callables from vector to vector.
+
+Each solver is a host loop. Per-iteration scalars stay 0-d tensors on the
+vectors' device; the loop syncs once per iteration, fetching the residual
+norm (and, where a solver needs them, a few more scalars in the same
+transfer) for the convergence test. GMRES's small Hessenberg least-squares
+problem runs on the host from that same transfer, as PETSc does.
+
+Convergence follows PETSc's KSPConvergedDefault: converged when
+rnorm <= max(rtol * rnorm0, atol), diverged when rnorm > dtol * rnorm0,
+where rnorm0 is the norm of the (preconditioned, for left-PC solvers)
+right-hand side. CG/MINRES/GMRES track the preconditioned residual norm;
+FGMRES (right PC) tracks the true residual norm.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional
+
+import torch
+
+# -- converged reasons (subset of PETSc KSPConvergedReason codes) -----------
+CONVERGED_RTOL = 2
+CONVERGED_ATOL = 3
+CONVERGED_ITS = 4
+DIVERGED_NULL = -2
+DIVERGED_ITS = -3
+DIVERGED_DTOL = -4
+DIVERGED_INDEFINITE_PC = -8
+DIVERGED_NANORINF = -9
+
+REASON_NAMES = {
+    2: "CONVERGED_RTOL",
+    3: "CONVERGED_ATOL",
+    4: "CONVERGED_ITS",
+    -2: "DIVERGED_NULL",
+    -3: "DIVERGED_ITS",
+    -4: "DIVERGED_DTOL",
+    -8: "DIVERGED_INDEFINITE_PC",
+    -9: "DIVERGED_NANORINF",
+}
+
+
+# -- vector algebra over tensors and tuples of tensors ----------------------
+
+def _map(fn, *vs):
+    if isinstance(vs[0], tuple):
+        return tuple(fn(*leaves) for leaves in zip(*vs))
+    return fn(*vs)
+
+
+def _leaves(v):
+    return v if isinstance(v, tuple) else (v,)
+
+
+def tdot(x, y):
+    """Inner product over all leaves, as a 0-d tensor."""
+    out = None
+    for a, b in zip(_leaves(x), _leaves(y)):
+        d = torch.dot(a.reshape(-1), b.reshape(-1))
+        out = d if out is None else out + d
+    return out
+
+
+def tnorm(x):
+    return torch.sqrt(tdot(x, x))
+
+
+def taxpy(a, x, y):
+    """y + a*x leaf by leaf."""
+    return _map(lambda xi, yi: yi + a * xi, x, y)
+
+
+def tscale(a, x):
+    return _map(lambda xi: a * xi, x)
+
+
+def tsub(x, y):
+    return _map(torch.sub, x, y)
+
+
+def tadd(x, y):
+    return _map(torch.add, x, y)
+
+
+def tzeros_like(x):
+    return _map(torch.zeros_like, x)
+
+
+@dataclasses.dataclass(frozen=True)
+class KrylovResult:
+    x: Any
+    iterations: int
+    rnorm: float  # final residual norm (per solver's norm convention)
+    rnorm0: float
+    history: torch.Tensor  # (maxiter+1,) float64 on the CPU, padded with -1
+    converged_reason: int
+
+    @property
+    def converged(self):
+        return self.converged_reason > 0
+
+    def reason_name(self):
+        return REASON_NAMES.get(int(self.converged_reason), "UNKNOWN")
+
+
+def _identity(x):
+    return x
+
+
+def _check_convergence(rnorm, rnorm0, rtol, atol, dtol, it, maxiter):
+    """PETSc KSPConvergedDefault logic on host floats -> (done, reason).
+
+    A non-finite residual norm ends the loop at once (DIVERGED_NANORINF)."""
+    if not math.isfinite(rnorm):
+        return True, DIVERGED_NANORINF
+    if rnorm <= atol:
+        return True, CONVERGED_ATOL
+    if rnorm <= rtol * rnorm0:
+        return True, CONVERGED_RTOL
+    if rnorm > dtol * rnorm0:
+        return True, DIVERGED_DTOL
+    if it >= maxiter:
+        return True, DIVERGED_ITS
+    return False, 0
+
+
+def _monitor_print(monitor, it, rnorm):
+    if monitor:
+        print(f"{it:>5} KSP Residual norm {rnorm:.12e}", flush=True)
+
+
+def _result(x, history, maxiter, bnorm, reason):
+    it = len(history) - 1
+    hist = torch.full((maxiter + 1,), -1.0, dtype=torch.float64)
+    hist[: it + 1] = torch.tensor(history, dtype=torch.float64)
+    return KrylovResult(x, it, history[-1], bnorm, hist, reason)
+
+
+# ---------------------------------------------------------------------------
+# CG
+# ---------------------------------------------------------------------------
+
+def cg(
+    A: Callable,
+    b,
+    M: Optional[Callable] = None,
+    x0=None,
+    rtol=1e-5,
+    atol=1e-50,
+    dtol=1e5,
+    maxiter=10000,
+    norm_type="preconditioned",
+    monitor=False,
+):
+    """Preconditioned conjugate gradients (left PC, PETSc KSPCG semantics).
+
+    M must be SPD. norm_type: "preconditioned" (PETSc default),
+    "unpreconditioned" or "natural".
+    """
+    if norm_type not in ("preconditioned", "unpreconditioned", "natural"):
+        raise ValueError(f"unknown norm_type {norm_type!r}")
+    M = M or _identity
+    x = tzeros_like(b) if x0 is None else x0
+
+    def norm_of(r, z, rzdot):
+        if norm_type == "preconditioned":
+            return tnorm(z)
+        if norm_type == "unpreconditioned":
+            return tnorm(r)
+        return torch.sqrt(torch.abs(rzdot))
+
+    r = tsub(b, A(x))
+    z = M(r)
+    rz = tdot(r, z)
+    zb = M(b)
+    bnorm = norm_of(b, zb, tdot(b, zb)).item()
+    rnorm = norm_of(r, z, rz).item()
+    history = [rnorm]
+    _monitor_print(monitor, 0, rnorm)
+    done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, 0, maxiter)
+    p = z
+    while not done:
+        w = A(p)
+        pw = tdot(p, w)
+        alpha = rz / pw
+        x = taxpy(alpha, p, x)
+        r = taxpy(-alpha, w, r)
+        z = M(r)
+        rz_new = tdot(r, z)
+        beta = rz_new / rz
+        p = taxpy(beta, p, z)
+        rz = rz_new
+        rnorm, pw_h = torch.stack([norm_of(r, z, rz_new), pw]).tolist()
+        history.append(rnorm)
+        it = len(history) - 1
+        _monitor_print(monitor, it, rnorm)
+        done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, it, maxiter)
+        if pw_h <= 0.0:  # indefinite operator guard
+            done, reason = True, DIVERGED_NULL
+    return _result(x, history, maxiter, bnorm, reason)
+
+
+# ---------------------------------------------------------------------------
+# MINRES
+# ---------------------------------------------------------------------------
+
+def minres(
+    A: Callable,
+    b,
+    M: Optional[Callable] = None,
+    x0=None,
+    rtol=1e-5,
+    atol=1e-50,
+    dtol=1e5,
+    maxiter=10000,
+    monitor=False,
+):
+    """Preconditioned MINRES (Paige-Saunders) for symmetric (indefinite) A.
+
+    M must be SPD. Tracks the preconditioned residual norm phi-bar (PETSc
+    KSPMINRES default norm); the solver of the KKT system [[A,B^T],[B,0]].
+    """
+    M = M or _identity
+    x = tzeros_like(b) if x0 is None else x0
+
+    r2 = tsub(b, A(x))
+    y = M(r2)
+    beta1sq = tdot(r2, y)
+    beta1 = torch.sqrt(torch.clamp_min(beta1sq, 0.0))
+    bnorm_t = torch.sqrt(torch.clamp_min(tdot(b, M(b)), 0.0))
+    rnorm, bnorm, beta1sq_h = torch.stack([beta1, bnorm_t, beta1sq]).tolist()
+    history = [rnorm]
+    _monitor_print(monitor, 0, rnorm)
+    done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, 0, maxiter)
+    if beta1sq_h < 0.0:
+        done, reason = True, DIVERGED_INDEFINITE_PC
+
+    eps = torch.finfo(beta1.dtype).eps
+    zero = tzeros_like(b)
+    r1 = r2
+    w = w1 = w2 = zero
+    oldb = torch.zeros_like(beta1)
+    beta = beta1
+    dbar = torch.zeros_like(beta1)
+    epsln = torch.zeros_like(beta1)
+    cs = torch.full_like(beta1, -1.0)
+    sn = torch.zeros_like(beta1)
+    phibar = beta1
+    it = 0
+    while not done:
+        it += 1
+        v = tscale(1.0 / beta, y)
+        y = A(v)
+        if it >= 2:
+            y = taxpy(-(beta / oldb), r1, y)
+        alfa = tdot(v, y)
+        y = taxpy(-(alfa / beta), r2, y)
+        r1, r2 = r2, y
+        y = M(r2)
+        oldb = beta
+        beta = torch.sqrt(torch.clamp_min(tdot(r2, y), 0.0))
+        # Givens QR of the tridiagonal
+        oldeps = epsln
+        delta = cs * dbar + sn * alfa
+        gbar = sn * dbar - cs * alfa
+        epsln = sn * beta
+        dbar = -cs * beta
+        gamma = torch.clamp_min(torch.sqrt(gbar**2 + beta**2), eps)
+        cs = gbar / gamma
+        sn = beta / gamma
+        phi = cs * phibar
+        phibar = sn * phibar
+        w1, w2 = w2, w
+        w = tscale(1.0 / gamma, tsub(v, tadd(tscale(oldeps, w1), tscale(delta, w2))))
+        x = taxpy(phi, w, x)
+        rnorm = torch.abs(phibar).item()
+        history.append(rnorm)
+        _monitor_print(monitor, it, rnorm)
+        done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, it, maxiter)
+    return _result(x, history, maxiter, bnorm, reason)
+
+
+# ---------------------------------------------------------------------------
+# GMRES / FGMRES
+# ---------------------------------------------------------------------------
+
+def _basis_dots(V, k, w):
+    """<V_i, w> for the first k basis vectors in one product per leaf, (k,)."""
+    out = None
+    for buf, leaf in zip(V, _leaves(w)):
+        d = buf[:k] @ leaf.reshape(-1)
+        out = d if out is None else out + d
+    return out
+
+
+def _basis_axpy(V, coefs, w):
+    """w + sum_i coefs[i] * V_i for len(coefs) leading basis vectors."""
+    k = coefs.shape[0]
+    leaves = tuple(
+        leaf + (coefs @ buf[:k]).reshape(leaf.shape) for buf, leaf in zip(V, _leaves(w))
+    )
+    return leaves if isinstance(w, tuple) else leaves[0]
+
+
+def _basis_set(V, j, v):
+    for buf, leaf in zip(V, _leaves(v)):
+        buf[j] = leaf.reshape(-1)  # in place: the basis buffers are owned by the cycle
+
+
+def _basis_get(V, j, template):
+    leaves = tuple(buf[j].reshape(t.shape) for buf, t in zip(V, _leaves(template)))
+    return leaves if isinstance(template, tuple) else leaves[0]
+
+
+def _gmres_impl(A, b, M, x0, rtol, atol, dtol, maxiter, restart, monitor, flexible):
+    """Shared GMRES/FGMRES implementation.
+
+    flexible=False: left-preconditioned GMRES; Arnoldi runs on M∘A; the
+      tracked norm is the preconditioned residual (PETSc KSPGMRES default).
+    flexible=True: right-preconditioned FGMRES; stores Z_j = M(v_j); the
+      tracked norm is the true residual (PETSc KSPFGMRES).
+    CGS2 orthogonalization: two blocks of dots per inner iteration. The
+    Givens rotations and the back-substitution run on the host in float64
+    on the Hessenberg column fetched once per iteration.
+    """
+    m = restart
+    M = M or _identity
+    ref = _leaves(b)[0]
+    rdtype, device = ref.dtype, ref.device
+    eps = torch.finfo(rdtype).eps
+
+    def pre_res(x):
+        r = tsub(b, A(x))
+        return r if flexible else M(r)
+
+    bnorm = tnorm(b if flexible else M(b)).item()
+    x = x0
+    rnorm0 = tnorm(pre_res(x)).item()
+    history = [rnorm0]
+    _monitor_print(monitor, 0, rnorm0)
+    done, reason = _check_convergence(rnorm0, bnorm, rtol, atol, dtol, 0, maxiter)
+    while not done:  # one restart cycle of <= m Arnoldi steps
+        r = pre_res(x)
+        beta_t = tnorm(r)
+        beta = beta_t.item()
+        V = [torch.zeros((m + 1, leaf.numel()), dtype=rdtype, device=device) for leaf in _leaves(b)]
+        Z = [torch.zeros((m, leaf.numel()), dtype=rdtype, device=device) for leaf in _leaves(b)] if flexible else None
+        # guard the division only against exact zero: an absolute floor
+        # would break scale invariance for tiny right-hand sides
+        _basis_set(V, 0, tscale(1.0 / (beta_t if beta > 0 else 1.0), r))
+        H = [[0.0] * m for _ in range(m + 1)]
+        cs, sn = [0.0] * m, [0.0] * m
+        g = [0.0] * (m + 1)
+        g[0] = beta
+        j = 0
+        while not done and j < m:
+            v = _basis_get(V, j, b)
+            if flexible:
+                z = M(v)
+                _basis_set(Z, j, z)
+                w = A(z)
+            else:
+                w = M(A(v))
+            # CGS2 against V[0..j]
+            h1 = _basis_dots(V, j + 1, w)
+            w = _basis_axpy(V, -h1, w)
+            h2 = _basis_dots(V, j + 1, w)
+            w = _basis_axpy(V, -h2, w)
+            hnew_t = tnorm(w)
+            _basis_set(V, j + 1, tscale(1.0 / torch.where(hnew_t > 0, hnew_t, 1.0), w))
+            *h, hnew = torch.cat([h1 + h2, hnew_t[None]]).tolist()
+            col = h + [hnew] + [0.0] * (m - j - 1)
+            for i in range(j):  # previous Givens rotations
+                hi = cs[i] * col[i] + sn[i] * col[i + 1]
+                col[i + 1] = -sn[i] * col[i] + cs[i] * col[i + 1]
+                col[i] = hi
+            denom = math.sqrt(col[j] ** 2 + col[j + 1] ** 2)
+            denom = denom if denom > 0 else 1.0
+            cs[j], sn[j] = col[j] / denom, col[j + 1] / denom
+            col[j], col[j + 1] = denom, 0.0
+            g[j], g[j + 1] = cs[j] * g[j], -sn[j] * g[j]
+            for i in range(m + 1):
+                H[i][j] = col[i]
+            rnorm = abs(g[j + 1])
+            history.append(rnorm)
+            it = len(history) - 1
+            _monitor_print(monitor, it, rnorm)
+            done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, it, maxiter)
+            # happy breakdown, judged relative to the column magnitude
+            hcol = math.sqrt(sum(t * t for t in h) + hnew * hnew)
+            done = done or hnew <= eps * 100.0 * hcol
+            j += 1
+        # back-substitution on the j x j triangular system
+        y = [0.0] * j
+        for i in range(j - 1, -1, -1):
+            num = g[i] - sum(H[i][k] * y[k] for k in range(i + 1, j))
+            hii = H[i][i] if abs(H[i][i]) > 0 else 1.0
+            y[i] = num / hii
+        coefs = torch.tensor(y, dtype=rdtype, device=device)
+        x = _basis_axpy(Z if flexible else V, coefs, x)
+    return _result(x, history, maxiter, bnorm, reason)
+
+
+def gmres(
+    A: Callable,
+    b,
+    M: Optional[Callable] = None,
+    x0=None,
+    rtol=1e-5,
+    atol=1e-50,
+    dtol=1e5,
+    maxiter=10000,
+    restart=30,
+    monitor=False,
+):
+    """Left-preconditioned restarted GMRES (PETSc KSPGMRES semantics)."""
+    x0 = tzeros_like(b) if x0 is None else x0
+    return _gmres_impl(A, b, M, x0, rtol, atol, dtol, maxiter, restart, monitor, False)
+
+
+def fgmres(
+    A: Callable,
+    b,
+    M: Optional[Callable] = None,
+    x0=None,
+    rtol=1e-5,
+    atol=1e-50,
+    dtol=1e5,
+    maxiter=10000,
+    restart=30,
+    monitor=False,
+):
+    """Flexible (right-preconditioned) restarted GMRES: the preconditioner
+    may change between iterations. PETSc KSPFGMRES semantics; tracks the
+    true residual norm."""
+    x0 = tzeros_like(b) if x0 is None else x0
+    return _gmres_impl(A, b, M, x0, rtol, atol, dtol, maxiter, restart, monitor, True)
+
+
+SOLVERS = {
+    "cg": cg,
+    "minres": minres,
+    "gmres": gmres,
+    "fgmres": fgmres,
+}

@@ -1,0 +1,209 @@
+"""KSP: options-configured Krylov solve driver (PyTorch twin of
+`saddle_point_petsc_tpu.solvers.ksp`).
+
+Supported options (prefix-scoped):
+  -ksp_type {cg,minres,gmres,fgmres}  [gmres]
+  -ksp_rtol <r> [1e-5]   -ksp_atol <a> [1e-50]   -ksp_divtol <d> [1e5]
+  -ksp_max_it <n> [10000]   -ksp_gmres_restart <m> [30]
+  -ksp_norm_type {preconditioned,unpreconditioned,natural} (CG)
+  -ksp_monitor   -ksp_converged_reason   -ksp_view
+  -pc_type {none,jacobi} on an operator with .diagonal(), {none,fieldsplit}
+           on a SaddleOperator  [jacobi]
+  -pc_fieldsplit_type schur
+  -pc_fieldsplit_schur_fact_type {diag,lower,upper,full}
+  -fieldsplit_inner_pc_type {jacobi,none}  (the Schur A-block solve)
+
+Other KSP and PC types of the JAX package raise NotImplementedError naming
+the ROADMAP.md item that ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import sys
+from typing import Any, Optional
+
+from saddle_point_petsc_tpu_torch.solvers import krylov, precond
+from saddle_point_petsc_tpu_torch.solvers.operators import SaddleOperator
+from saddle_point_petsc_tpu_torch.utils.options import Options
+
+# PC and KSP types of the JAX package that this package does not have yet,
+# with the ROADMAP.md item that ports each.
+_PC_LATER = {
+    "pbjacobi": "A.11 (rest of precond.py)",
+    "sor": "A.11 (rest of precond.py)",
+    "bjacobi": "A.11 (rest of precond.py)",
+    "ilu": "A.11 (rest of precond.py, ilu_stencil.py)",
+    "chebyshev": "A.11 (rest of precond.py: ChebyshevPC, estimate_lmax)",
+    "fieldsplit": "A.11 (rest of precond.py: fieldsplit on the stencil)",
+    "mg": "A.10 (multigrid.py)",
+    "gamg": "A.16 (amg.py)",
+}
+_KSP_LATER = {
+    t: "A.11 (rest of krylov.py)" for t in ("bcgs", "richardson", "chebyshev")
+}
+
+
+def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
+    """Build a preconditioner for operator A from options (PC factory).
+
+    On the KKT system the Schur factorization defaults to "diag" for
+    MINRES/CG (they need an SPD PC) and "full" for (F)GMRES.
+    """
+    opts = opts if opts is not None else Options()
+    if pc_type in ("none", ""):
+        return precond.IdentityPC()
+
+    if isinstance(A, SaddleOperator):
+        if pc_type != "fieldsplit":
+            raise ValueError(
+                f"pc_type {pc_type!r} unsupported for the KKT block system;"
+                " use -pc_type fieldsplit (schur)"
+            )
+        fs_type = opts.get_str("pc_fieldsplit_type", "schur")
+        if fs_type != "schur":
+            raise ValueError(
+                f"-pc_fieldsplit_type {fs_type!r} unsupported for the KKT"
+                " block system (zero (1,1) block); use schur"
+            )
+        default_fact = "diag" if ksp_type in ("minres", "cg") else "full"
+        fact = opts.get_str("pc_fieldsplit_schur_fact_type", default_fact)
+        inner_type = opts.get_str("fieldsplit_inner_ksp_type", "none")
+        if inner_type != "none":
+            raise NotImplementedError(
+                f"-fieldsplit_inner_ksp_type {inner_type}: an inner KSP as the "
+                "Schur A-solve (KSPInnerPC) is ROADMAP.md A.11"
+            )
+        inner_pc_type = opts.get_str("fieldsplit_inner_pc_type", "jacobi")
+        if inner_pc_type not in ("jacobi", "none"):
+            raise NotImplementedError(
+                f"-fieldsplit_inner_pc_type {inner_pc_type}: only jacobi and "
+                "none are ported; the others are ROADMAP.md A.10-A.11"
+            )
+        inner = make_pc(inner_pc_type, A.A, opts)
+        return precond.schur_pc(A.A, A.Bf, inner, fact_type=fact)
+
+    if pc_type in _PC_LATER:
+        raise NotImplementedError(
+            f"-pc_type {pc_type} is not ported yet: ROADMAP.md {_PC_LATER[pc_type]}"
+        )
+    if pc_type == "jacobi":
+        return precond.jacobi(A)
+    raise ValueError(f"unknown pc_type {pc_type!r}")
+
+
+@dataclasses.dataclass
+class KSP:
+    """Krylov solve context configured from the options database."""
+
+    opts: Options = dataclasses.field(default_factory=Options)
+    prefix: str = ""
+    ksp_type: str = "gmres"
+    pc_type: str = "jacobi"
+    rtol: float = 1e-5
+    atol: float = 1e-50
+    dtol: float = 1e5
+    max_it: int = 10000
+    restart: int = 30
+    monitor: bool = False
+    norm_type: str = "preconditioned"
+    A: Any = None
+    M: Any = None
+
+    def _opts(self):
+        return self.opts.scoped(self.prefix) if self.prefix else self.opts
+
+    def set_operators(self, A, M=None):
+        self.A = A
+        self.M = M
+        return self
+
+    def set_from_options(self):
+        """Read -ksp_*/-pc_* (with this KSP's prefix) from the database."""
+        o = self._opts()
+        self.ksp_type = o.get_str("ksp_type", self.ksp_type)
+        self.rtol = o.get_float("ksp_rtol", self.rtol)
+        self.atol = o.get_float("ksp_atol", self.atol)
+        self.dtol = o.get_float("ksp_divtol", self.dtol)
+        self.max_it = o.get_int("ksp_max_it", self.max_it)
+        self.restart = o.get_int("ksp_gmres_restart", self.restart)
+        self.monitor = o.get_bool("ksp_monitor", self.monitor)
+        self.norm_type = o.get_str("ksp_norm_type", self.norm_type)
+        self.pc_type = o.get_str("pc_type", self.pc_type)
+        return self
+
+    def set_up(self):
+        """Build the PC (KSPSetUp)."""
+        if self.M is None and self.A is not None:
+            self.M = make_pc(self.pc_type, self.A, self._opts(), ksp_type=self.ksp_type)
+        return self
+
+    def view(self):
+        """PETSc -ksp_view-style description of the configured solve."""
+        lines = [
+            "KSP Object:",
+            f"  type: {self.ksp_type}",
+            (
+                f"  maximum iterations={self.max_it}, "
+                f"tolerances: relative={self.rtol:g}, "
+                f"absolute={self.atol:g}, divergence={self.dtol:g}"
+            ),
+            f"  norm type: {self.norm_type}",
+        ]
+        if self.ksp_type in ("gmres", "fgmres"):
+            lines.append(f"  restart={self.restart}")
+        lines += [
+            "PC Object:",
+            f"  type: {self.pc_type}",
+            f"  implementation: {type(self.M).__name__}"
+            if self.M is not None
+            else "  (not set up)",
+        ]
+        if self.A is not None:
+            shape = getattr(self.A, "shape", None)
+            lines.append(
+                f"Mat Object: {type(self.A).__name__}"
+                + (f", size {shape[0]}x{shape[1]}" if shape else "")
+            )
+        return "\n".join(lines)
+
+    def mat_solve(self, B, x0=None):
+        raise NotImplementedError(
+            "KSPMatSolve (pseudo-block CG over the stencil SpMM kernel B2) "
+            "is ROADMAP.md A.12"
+        )
+
+    def solve(self, b, x0=None) -> krylov.KrylovResult:
+        if self.ksp_type in _KSP_LATER:
+            raise NotImplementedError(
+                f"-ksp_type {self.ksp_type} is not ported yet: "
+                f"ROADMAP.md {_KSP_LATER[self.ksp_type]}"
+            )
+        if self.ksp_type not in krylov.SOLVERS:
+            raise ValueError(f"unknown ksp_type {self.ksp_type!r}")
+        if self.M is None:
+            self.set_up()
+        o = self._opts()
+        if o.get_bool("ksp_view"):
+            print(self.view())
+        kwargs = dict(
+            M=self.M,
+            x0=x0,
+            rtol=self.rtol,
+            atol=self.atol,
+            dtol=self.dtol,
+            maxiter=self.max_it,
+            monitor=self.monitor,
+        )
+        if self.ksp_type in ("gmres", "fgmres"):
+            kwargs["restart"] = self.restart
+        if self.ksp_type == "cg":
+            kwargs["norm_type"] = self.norm_type
+        res = krylov.SOLVERS[self.ksp_type](self.A, b, **kwargs)
+        if o.get_bool("ksp_converged_reason"):
+            word = "CONVERGED" if res.converged_reason > 0 else "DIVERGED"
+            print(
+                f"Linear solve {word} due to {res.reason_name()} "
+                f"iterations {res.iterations}",
+                file=sys.stdout,
+            )
+        return res

@@ -1,0 +1,191 @@
+"""Port parity: saddle_point_petsc_tpu_torch.cli (-device cpu) against the
+JAX package's cli, plus the port's viewers and its import boundary.
+
+Tolerances:
+- the summary text up to `rnorm=` and the -ksp_converged_reason line are
+  identical;
+- rnorm to 1e-9 of the initial residual norm: the 9x9 saddle run stops in
+  a MINRES plateau where a one-ulp change of f moves the JAX package's
+  own final rnorm by ~3% (see tests/test_torch_saddle.py);
+- test.vtk: header, POINTS and POLYGONS bytes identical; data values to
+  1e-8 * max|value|, covering the 9-digit print (5e-10 relative) and the
+  reference's own 1e-9 sensitivity of u to a one-ulp change of f.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from saddle_point_petsc_tpu import cli as jcli
+from saddle_point_petsc_tpu.models import poisson as jpoisson
+from saddle_point_petsc_tpu.utils.viewers import view_from_options as jview
+from saddle_point_petsc_tpu_torch import cli as tcli
+from saddle_point_petsc_tpu_torch.models import poisson as tpoisson
+from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator
+from saddle_point_petsc_tpu_torch.utils import vtk as tvtk
+from saddle_point_petsc_tpu_torch.utils.options import Options
+from saddle_point_petsc_tpu_torch.utils.viewers import view_from_options as tview
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+SUMMARY = re.compile(r"^(\w+: grid .*), rnorm=(\S+)$", re.M)
+REASON = re.compile(r"^Linear solve .*$", re.M)
+
+
+def _vtk_parts(path):
+    """(geometry lines, keyword lines of the data part, its numbers)."""
+    lines = path.read_text().split("\n")
+    head = lines.index("POINT_DATA " + lines[4].split()[1])
+    data = lines[head:]
+    words = [ln for ln in data if ln[:1].isalpha()]
+    nums = [float(v) for ln in data if not ln[:1].isalpha() for v in ln.split()]
+    return lines[:head], words, np.array(nums)
+
+
+@pytest.mark.parametrize(
+    "args",
+    [
+        ["-da_grid_x", "9", "-da_grid_y", "9", "-problem_type", "saddle",
+         "-body_force", "trig", "-ksp_rtol", "1e-8"],
+        [],  # the default route: 4x4 nodes, Poisson, GMRES + Jacobi
+    ],
+    ids=["saddle9", "default"],
+)
+def test_cli_matches_jax(tmp_path, capsys, args):
+    args = args + ["-ksp_converged_reason"]
+    jpath, tpath = tmp_path / "jax.vtk", tmp_path / "torch.vtk"
+    assert jcli.main(args + ["-vtk", str(jpath)]) == 0
+    out_j = capsys.readouterr().out
+    run = tcli.run(args + ["-device", "cpu", "-vtk", str(tpath)])
+    out_t = capsys.readouterr().out
+    assert run.rc == 0
+
+    [(sum_j, rn_j)], [(sum_t, rn_t)] = SUMMARY.findall(out_j), SUMMARY.findall(out_t)
+    assert sum_t == sum_j
+    assert abs(float(rn_t) - float(rn_j)) <= 1e-9 * run.result.rnorm0
+    assert REASON.findall(out_t) == REASON.findall(out_j)
+
+    geo_j, words_j, vj = _vtk_parts(jpath)
+    geo_t, words_t, vt = _vtk_parts(tpath)
+    assert geo_t == geo_j  # header, POINTS, POLYGONS
+    assert words_t == words_j and vt.shape == vj.shape
+    assert np.max(np.abs(vt - vj)) <= 1e-8 * max(np.max(np.abs(vj)), 1e-300)
+
+
+def test_vtk_roundtrip(tmp_path):
+    prob = tpoisson.assemble_poisson(3, 3)
+    u = torch.arange(32, dtype=torch.float64).reshape(2, 4, 4)
+    path = tmp_path / "out.vtk"
+    tvtk.write_vtk(path, prob.coords, u)
+    pts, polys, uu = tvtk.read_vtk_points(path)
+    assert pts.shape == (16, 3) and polys.shape == (9, 4)
+    np.testing.assert_allclose(pts[:, :2], prob.coords.numpy().reshape(-1, 2))
+    np.testing.assert_allclose(uu[:, :2], u.permute(1, 2, 0).reshape(-1, 2).numpy())
+
+
+def test_port_never_imports_jax(tmp_path):
+    """Importing every module of the port and running its CLI on the CPU
+    leaves jax out of the process."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import saddle_point_petsc_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from saddle_point_petsc_tpu_torch import cli\n"
+        "rc = cli.main(['-device', 'cpu', '-problem_type', 'saddle', '-body_force', 'trig',\n"
+        "               '-da_grid_x', '6', '-da_grid_y', '5', '-ksp_converged_reason'])\n"
+        "assert rc == 0, rc\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "assert not bad, bad\n"
+        "print('no jax')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "CONVERGED_RTOL" in proc.stdout and "no jax" in proc.stdout
+    assert (tmp_path / "test.vtk").exists()
+
+
+@pytest.mark.parametrize("argv", [["-device", "cuda"], []], ids=["explicit", "default"])
+def test_device_cuda_without_card_raises(argv):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcli.main(argv + ["-no_vtk"])
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [
+        ["-dist"],
+        ["-mesh", "2,2"],
+        ["-mat_type", "aij"],
+        ["-profile", "trace"],
+        ["-pc_type", "ilu"],
+        ["-ksp_type", "bcgs"],
+        ["-problem_type", "saddle", "-fieldsplit_inner_ksp_type", "cg"],
+    ],
+)
+def test_later_slices_raise_not_implemented(extra):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcli.main(["-device", "cpu", "-no_vtk"] + extra)
+
+
+def test_unread_backend_flag_is_reported(capsys):
+    assert tcli.main(
+        ["-device", "cpu", "-no_vtk", "-mat_stencil_backend", "pallas", "-options_left"]
+    ) == 0
+    assert "unused option: -mat_stencil_backend" in capsys.readouterr().err
+
+
+def test_viewers_match_jax(tmp_path, capsys):
+    jp = jpoisson.assemble_poisson(2, 2)
+    tp = tpoisson.assemble_poisson(2, 2)
+    for view, A, name in ((jview, jp.A, "j.npz"), (tview, tp.A, "t.npz")):
+        assert view(A, Options(["-A_mat_view", f"{tmp_path / name}:npz"]), "A_mat_view", "A")
+    np.testing.assert_allclose(
+        np.load(tmp_path / "t.npz")["A"], np.load(tmp_path / "j.npz")["A"], rtol=1e-13, atol=1e-15
+    )
+    assert tview(tp.f, Options(["-f_vec_view"]), "f_vec_view", "f")
+    assert "f =" in capsys.readouterr().out
+    assert not tview(tp.f, Options(), "not_set")
+
+
+def test_viewer_large_sparse_no_densify(tmp_path, capsys):
+    """Above DENSE_LIMIT rows -A_mat_view dumps COO triplets, and they
+    reproduce the operator's matvec."""
+    import scipy.sparse as sps
+
+    prob = tpoisson.assemble_poisson(127, 127)  # 128^2 * 2 = 32768 rows
+    assert tview(prob.A, Options(["-A_mat_view"]), "A_mat_view", "A")
+    assert "sparse 32768x32768" in capsys.readouterr().out
+    npz = tmp_path / "a.npz"
+    assert tview(prob.A, Options(["-A_mat_view", f"{npz}:npz"]), "A_mat_view", "A")
+    d = np.load(npz)
+    a = sps.coo_matrix((d["A_data"], (d["A_row"], d["A_col"])), shape=tuple(d["A_shape"])).tocsr()
+    x = np.random.default_rng(0).standard_normal(a.shape[1])
+    y = StencilOperator(prob.A.planes).matvec(torch.tensor(x)).numpy()
+    np.testing.assert_allclose(a @ x, y, rtol=1e-10, atol=1e-12)
+
+
+def test_monitor_lines_match_jax(capsys):
+    """-ksp_monitor prints PETSc's line format; the iteration numbers match
+    the JAX CLI's and the first residual norm to 1e-12 relative (later
+    entries are at roundoff on this 2-iteration solve)."""
+    assert jcli.main(["-ksp_monitor", "-no_vtk"]) == 0
+    out_j = capsys.readouterr().out
+    assert tcli.main(["-device", "cpu", "-ksp_monitor", "-no_vtk"]) == 0
+    out_t = capsys.readouterr().out
+    line = re.compile(r"^ *(\d+) KSP Residual norm (\S+)$", re.M)
+    mj, mt = line.findall(out_j), line.findall(out_t)
+    assert [i for i, _ in mt] == [i for i, _ in mj] and len(mt) >= 2
+    assert abs(float(mt[0][1]) - float(mj[0][1])) <= 1e-12 * float(mj[0][1])
