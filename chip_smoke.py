@@ -7,8 +7,9 @@ Phases (each passes or raises; the script exits non-zero on any failure):
 
 1. Environment: torch/CUDA versions, the card's name and power limit
    (nvidia-smi), nvcc's version. Exits 1 without a CUDA device.
-2. Build: compile csrc/stencil_spmv.cu with nvcc for sm_90a (or load the
-   build keyed on the source's hash) and report the time.
+2. Build: compile every csrc/*.cu with nvcc for sm_90a, one nvcc per
+   source, all started together (or load the builds keyed on the
+   sources' hashes); report each library's time and ptxas report.
 3. Kernel B1 against its plain PyTorch version on the card: f32 and f64,
    both entry points, node grids 4x4 to 1025x1025 (the main path's among
    them) with planes from assemble_poisson(body_force="trig") and random
@@ -19,14 +20,34 @@ Phases (each passes or raises; the script exits non-zero on any failure):
    plain matvec in place of the kernel.
 5. Main path, f32, 1025^2 nodes to rtol 1e-5, and 256^2 nodes (the JAX
    bench's kkt_solve configuration) beside its recorded 452 iterations.
+6. Kernels B3 (both entry names) and B4 against their plain versions, f32
+   and f64: operators from assemble_poisson_csr -> csr_to_dia and
+   bsr_to_bdia(csr_to_bsr) at 4x4 to 1025x1025 nodes, random bands with
+   offsets such as (-300, -17, -1, 0, 3, 129, 255) and rows not a multiple
+   of 32, random block bands with random active triples for b = 1, 2, 3;
+   then each timed at 1025^2 (plain, kernel, kernel, plain).
+7. Formats agree, 257^2 f64, CG + Jacobi to rtol 1e-8 through the CLI:
+   -mat_type aij, dia and bdia and the stencil route; iteration counts,
+   solutions and VTK output.
+8. gamg, 1025^2 nodes (2,101,250 rows) f64, -mat_type dia -ksp_type cg
+   -pc_type gamg to rtol 1e-8 on the unpreconditioned residual (the
+   preconditioned norm's 1e-8 leaves a true residual near 1e-5 at this
+   size), counting B3 launches: hierarchy, setup and
+   solve times, true residual, B3 on every DIA level operator against its
+   plain version, and the same hierarchy solved with plain matvecs.
+9. Block-DIA, 1025^2 f32, CG + Jacobi to rtol 1e-5, counting B4 launches.
+10. The main path with a gamg inner solve: 257^2 f64 saddle route with
+    -fieldsplit_inner_pc_type gamg to rtol 1e-8, B1 and B3 both launched.
 
 The last lines are the kernels JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import random
 import statistics
 import subprocess
 import sys
@@ -37,14 +58,20 @@ import torch
 
 from saddle_point_petsc_tpu_torch import cli
 from saddle_point_petsc_tpu_torch.models import poisson
-from saddle_point_petsc_tpu_torch.ops.cuda import _build, spmv
-from saddle_point_petsc_tpu_torch.solvers import krylov, precond
+from saddle_point_petsc_tpu_torch.ops import sparse
+from saddle_point_petsc_tpu_torch.ops.cuda import _build, bdia, dia, spmv
+from saddle_point_petsc_tpu_torch.ops.stencil import field_to_flat
+from saddle_point_petsc_tpu_torch.solvers import amg, krylov, precond
 from saddle_point_petsc_tpu_torch.solvers.operators import SaddleOperator
 
 # (nx, ny) nodes: ragged small grids up to 1025^2, the main path's 256^2 and 257^2 among them
 GRIDS = ((4, 4), (7, 5), (33, 17), (257, 129), (256, 256), (257, 257), (1025, 1025))
-# Kernel and plain version sum the same 36 products in the same order;
-# only FMA contraction differs, so they agree to a few ulps of max|y|.
+# node grids of the assembled DIA and block-DIA operators checked in phase 6
+SPARSE_GRIDS = ((4, 4), (7, 5), (33, 17), (257, 257), (1025, 1025))
+# B1: the kernel and its plain version sum the same 36 products in the
+# same order; only FMA contraction differs, so they agree to a few ulps of
+# max|y|. B3 and B4 round each product and sum as the plain versions do
+# and are held to the same bounds (expected: equal bits).
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 BENCH_R04_KKT_ITERATIONS = 452  # BENCH_r04.json kkt_iterations (256^2, f32, rtol 1e-5)
 
@@ -139,24 +166,31 @@ def phase_kernel(dev, card):
     return max_err, timings
 
 
-def _cli(argv):
-    """One in-process CLI run; returns (CliRun, B1 launches during it)."""
+def _cli(argv, kernels=("B1",)):
+    """One in-process CLI run with every kernel count set to 0 just before;
+    returns (CliRun, {name: launches during it}). Each named kernel must
+    have launched at least once per iteration."""
     print("$ python -m saddle_point_petsc_tpu_torch.cli " + " ".join(argv), flush=True)
-    spmv.reset_launches()
+    for mod in (spmv, dia, bdia):
+        mod.reset_launches()
     run = cli.run(argv)
-    launches = spmv.launches
+    counts = {"B1": spmv.launches, "B3": dia.launches, "B4": bdia.launches}
     res = run.result
-    print(f"B1 launches {launches}, iterations {res.iterations}, reason {res.reason_name()}")
+    print(
+        f"launches B1 {counts['B1']} B3 {counts['B3']} B4 {counts['B4']}, "
+        f"iterations {res.iterations}, reason {res.reason_name()}"
+    )
     if run.rc != 0 or res.reason_name() != "CONVERGED_RTOL":
         raise AssertionError(f"CLI run did not converge: rc={run.rc} {res.reason_name()}")
-    if launches < res.iterations:
-        raise AssertionError(f"B1 launched {launches} times for {res.iterations} iterations")
-    return run, launches
+    for name in kernels:
+        if counts[name] < res.iterations:
+            raise AssertionError(f"{name} launched {counts[name]} times for {res.iterations} iterations")
+    return run, counts
 
 
 def phase_f64(tmp):
     vtk_path = os.path.join(tmp, "saddle_257.vtk")
-    run, launches = _cli([
+    run, counts = _cli([
         "-device", "cuda", "-problem_type", "saddle", "-body_force", "trig",
         "-da_grid_x", "257", "-da_grid_y", "257", "-dtype", "f64",
         "-ksp_rtol", "1e-8", "-ksp_converged_reason", "-log_view", "-vtk", vtk_path,
@@ -190,7 +224,7 @@ def phase_f64(tmp):
         raise AssertionError(f"plain solve: {res_p.reason_name()} in {res_p.iterations} its")
     if not dx <= 1e-6:
         raise AssertionError(f"kernel and plain solutions differ by {dx}")
-    return launches
+    return counts["B1"]
 
 
 def phase_f32(tmp):
@@ -210,6 +244,255 @@ def phase_f32(tmp):
                 raise AssertionError(f"{its} iterations, not within 20% of {BENCH_R04_KKT_ITERATIONS}")
 
 
+def _compare(label, got, ref, dtype):
+    """|got - ref| <= TOL * max|ref|, printed; returns the max abs error."""
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    scale = max(ref.abs().max().item(), 1e-300)
+    ok = err <= TOL[dtype] * scale
+    print(
+        f"{label} {str(dtype)[6:]:<8} max|dy|={err:.3e} max|y|={scale:.3e} "
+        f"rel={err / scale:.3e} tol={TOL[dtype]:g} {'ok' if ok else 'FAIL'}"
+    )
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version ({dtype})")
+    return err
+
+
+def _check_dia(label, data, x, offsets, dtype):
+    """B3 through both entry names against dia_spmv_plain."""
+    ref = dia.dia_spmv_plain(data, x, offsets)
+    return max(
+        _compare(f"B3  {label:<36}", dia.dia_spmv_2d(data, x, offsets), ref, dtype),
+        _compare(f"B3' {label:<36}", dia.dia_spmv(data, x, offsets), ref, dtype),
+    )
+
+
+def _check_bdia(label, data, xb, offsets, active, dtype):
+    ref = bdia.bdia_spmv_plain(data, xb, offsets, active)
+    return _compare(f"B4  {label:<36}", bdia.bdia_spmv_2d(data, xb, offsets, active), ref, dtype)
+
+
+def phase_sparse_kernels(dev, card):
+    """Phase 6: B3, B3' and B4 against their plain versions, then timed."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    rnd = random.Random(1)
+    err = {"B3": 0.0, "B4": 0.0}
+    big = None
+    for nx, ny in SPARSE_GRIDS:
+        t0 = time.perf_counter()
+        csr, _, _, _ = poisson.assemble_poisson_csr(nx - 1, ny - 1, dtype=torch.float64, device=dev)
+        A, _ = sparse.csr_to_dia(csr)
+        B = sparse.bsr_to_bdia(sparse.csr_to_bsr(csr, 2))
+        del csr
+        print(
+            f"{nx}x{ny}: {A.shape[0]} rows, DIA offsets {len(A.offsets)}, block-DIA "
+            f"offsets {len(B.offsets)} active {len(B.active)}; assembled and "
+            f"converted in {time.perf_counter() - t0:.2f} s"
+        )
+        for dtype in (torch.float32, torch.float64):
+            data, bdata = A.data.to(dtype), B.data.to(dtype)
+            x = torch.randn((A.shape[0],), generator=gen, dtype=dtype, device=dev)
+            err["B3"] = max(err["B3"], _check_dia(f"{nx}x{ny} assembled", data, x, A.offsets, dtype))
+            xb = x.reshape(-1, 2).T.contiguous()
+            err["B4"] = max(err["B4"], _check_bdia(
+                f"{nx}x{ny} assembled", bdata, xb, B.offsets, B.active, dtype))
+        if (nx, ny) == (1025, 1025):
+            big = A, B
+    for dtype in (torch.float32, torch.float64):
+        offs = (-300, -17, -1, 0, 3, 129, 255)
+        for n in (1000, 100003):
+            data = torch.randn((len(offs), n), generator=gen, dtype=dtype, device=dev)
+            x = torch.randn((n,), generator=gen, dtype=dtype, device=dev)
+            err["B3"] = max(err["B3"], _check_dia(f"random n={n}", data, x, offs, dtype))
+        boffs = (-40, -3, 0, 1, 7, 300)
+        for b in (1, 2, 3):
+            for mb in (777, 50001):
+                triples = [(k, c, d) for k in range(len(boffs)) for c in range(b) for d in range(b)]
+                active = tuple(t for t in triples if rnd.random() < 0.6) or (triples[0],)
+                data = torch.randn((len(boffs), b, b, mb), generator=gen, dtype=dtype, device=dev)
+                xb = torch.randn((b, mb), generator=gen, dtype=dtype, device=dev)
+                err["B4"] = max(err["B4"], _check_bdia(
+                    f"random b={b} mb={mb} |active|={len(active)}", data, xb, boffs, active, dtype))
+
+    A, B = big
+    timings = {}
+    for dtype in (torch.float32, torch.float64):
+        data, bdata = A.data.to(dtype), B.data.to(dtype)
+        n = A.shape[0]
+        x = torch.randn((n,), generator=gen, dtype=dtype, device=dev)
+        xb = x.reshape(-1, 2).T.contiguous()
+        mb = xb.shape[1]
+        es = x.element_size()
+        for name, plain, kernel, nbytes in (
+            ("B3", lambda: dia.dia_spmv_plain(data, x, A.offsets),
+             lambda: dia.dia_spmv_2d(data, x, A.offsets), (len(A.offsets) + 2) * n * es),
+            ("B3'", lambda: dia.dia_spmv_plain(data, x, A.offsets),
+             lambda: dia.dia_spmv(data, x, A.offsets), (len(A.offsets) + 2) * n * es),
+            ("B4", lambda: bdia.bdia_spmv_plain(bdata, xb, B.offsets, B.active),
+             lambda: bdia.bdia_spmv_2d(bdata, xb, B.offsets, B.active),
+             (len(B.active) + 4) * mb * es),
+        ):
+            tp1, tk1, tk2, tp2 = (_median_ms(f) for f in (plain, kernel, kernel, plain))
+            tk, tp = min(tk1, tk2), min(tp1, tp2)
+            for what, t in (("kernel", tk), ("plain", tp)):
+                print(
+                    f"{name:<3} time {str(dtype)[6:]:<8} 1025x1025 {what:<6} {t * 1e3:9.2f} us "
+                    f"{nbytes / t / 1e6:8.1f} GB/s  ({card})"
+                )
+            print(
+                f"  medians of 60 in turn (plain, kernel, kernel, plain): {tp1 * 1e3:.2f} "
+                f"{tk1 * 1e3:.2f} {tk2 * 1e3:.2f} {tp2 * 1e3:.2f} us; {nbytes / 1e6:.1f} MB per call"
+            )
+            timings[name, dtype] = (tk, tp)
+    return err, timings
+
+
+def phase_formats(tmp):
+    """Phase 7: -mat_type aij, dia, bdia and the stencil route agree."""
+    base = [
+        "-device", "cuda", "-dtype", "f64", "-da_grid_x", "257", "-da_grid_y", "257",
+        "-ksp_type", "cg", "-pc_type", "jacobi", "-ksp_rtol", "1e-8", "-ksp_converged_reason",
+    ]
+    its, xs, vtks = {}, {}, {}
+    for mat_type, kernels in (("aij", ()), ("dia", ("B3",)), ("bdia", ("B4",)), ("stencil", ("B1",))):
+        vtks[mat_type] = os.path.join(tmp, f"poisson_{mat_type}.vtk")
+        run, _ = _cli(base + ["-mat_type", mat_type, "-vtk", vtks[mat_type]], kernels)
+        its[mat_type] = run.result.iterations
+        x = run.result.x
+        xs[mat_type] = field_to_flat(x) if x.ndim == 3 else x
+    print(f"257^2 f64 CG+Jacobi iterations: {its}")
+    if not (its["aij"] == its["dia"] and abs(its["bdia"] - its["aij"]) <= 1
+            and abs(its["aij"] - its["stencil"]) <= 2):
+        raise AssertionError(f"iteration counts disagree: {its}")
+    ref = xs["aij"]
+    for mat_type, tol in (("dia", 1e-8), ("bdia", 1e-8), ("stencil", 1e-6)):
+        dx = (krylov.tnorm(xs[mat_type] - ref) / krylov.tnorm(ref)).item()
+        print(f"|x_{mat_type} - x_aij| / |x_aij| = {dx:.3e} (tol {tol:g})")
+        if not dx <= tol:
+            raise AssertionError(f"{mat_type} solution differs from aij by {dx}")
+    # B3 and B4 sum each row in column order and round as their plain
+    # versions do, so dia and bdia give the same bits; the CSR route's
+    # row sums (torch.segment_reduce) round otherwise on the card
+    with open(vtks["dia"], "rb") as fd, open(vtks["bdia"], "rb") as fb:
+        same = fd.read() == fb.read()
+    print(f"dia and bdia VTK files byte-identical: {same}")
+    if not same:
+        raise AssertionError("dia and bdia wrote different VTK files")
+
+
+@dataclasses.dataclass(frozen=True)
+class _PlainDIA:
+    """A DIA operator whose matvec is B3's plain version on any device."""
+
+    A: sparse.DIA
+
+    def __call__(self, x):
+        return dia.dia_spmv_plain(self.A.data, x.contiguous(), self.A.offsets)
+
+    def diagonal(self):
+        return self.A.diagonal()
+
+
+def _plain(op):
+    return _PlainDIA(op) if isinstance(op, sparse.DIA) else op
+
+
+def phase_gamg(dev):
+    """Phase 8: CG + gamg on the 1025^2 DIA operator, counting B3."""
+    n = 1025
+    run, counts = _cli([
+        "-device", "cuda", "-dtype", "f64", "-da_grid_x", str(n), "-da_grid_y", str(n),
+        "-mat_type", "dia", "-ksp_type", "cg", "-pc_type", "gamg", "-ksp_rtol", "1e-8",
+        "-ksp_norm_type", "unpreconditioned", "-ksp_converged_reason", "-log_view", "-no_vtk",
+    ], ("B3",))
+    prob, res, M = run.problem, run.result, run.ksp.M
+    t_setup, t_solve = (run.log.phases[p].total_s for p in ("PCSetUp", "KSPSolve"))
+    print(
+        f"{n}^2 f64 CG+gamg: {res.iterations} its, PCSetUp {t_setup:.3f} s, KSPSolve "
+        f"{t_solve:.4f} s ({t_solve / res.iterations * 1e3:.3f} ms/it), B3 launches {counts['B3']}, "
+        f"aggregation {amg.aggregation_route}"
+    )
+    for k, lvl in enumerate(M.levels):
+        fmt = type(lvl.A).__name__
+        offs = f", {len(lvl.A.offsets)} offsets {lvl.A.offsets}" if fmt == "DIA" else ""
+        print(f"  level {k}: {lvl.agg.shape[0]} rows -> {lvl.n_c}, {fmt}{offs}")
+    ci = M.coarse_inv
+    split = f" ({ci.iso.shape[0]} decoupled rows + dense {ci.rest.shape[0]})" if hasattr(ci, "iso") else ""
+    print(f"  coarse: {ci.shape[0]} rows, {type(ci).__name__}{split}")
+    if res.iterations > 30:
+        raise AssertionError(f"gamg took {res.iterations} iterations")
+    A, b = prob.A, prob.f
+    true_rel = (krylov.tnorm(b - _plain(A)(res.x)) / krylov.tnorm(b)).item()
+    print(f"true residual |b - Ax|/|b| = {true_rel:.3e} (f64, plain matvec)")
+    if not true_rel <= 1e-6:
+        raise AssertionError(f"true residual {true_rel} > 1e-6")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    err = 0.0
+    for k, lvl in enumerate(M.levels):
+        if isinstance(lvl.A, sparse.DIA):
+            x = torch.randn((lvl.A.shape[0],), generator=gen, dtype=torch.float64, device=dev)
+            err = max(err, _check_dia(f"gamg level {k} ({lvl.A.shape[0]} rows)", lvl.A.data, x,
+                                      lvl.A.offsets, torch.float64))
+
+    levels = tuple(
+        dataclasses.replace(
+            lvl, A=_plain(lvl.A), smoother=dataclasses.replace(lvl.smoother, A=_plain(lvl.smoother.A))
+        )
+        for lvl in M.levels
+    )
+    dia.reset_launches()
+    t0 = time.perf_counter()
+    res_p = krylov.cg(_plain(A), b, M=dataclasses.replace(M, levels=levels), rtol=1e-8,
+                      maxiter=200, norm_type="unpreconditioned")
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    dx = (krylov.tnorm(res.x - res_p.x) / krylov.tnorm(res_p.x)).item()
+    print(
+        f"same hierarchy, plain DIA matvecs: {res_p.iterations} its, {t_plain:.4f} s, "
+        f"B3 launches {dia.launches}; |x_kernel - x_plain|/|x_plain| = {dx:.3e}"
+    )
+    if dia.launches != 0 or res_p.reason_name() != "CONVERGED_RTOL":
+        raise AssertionError(f"plain solve: {res_p.reason_name()}, {dia.launches} B3 launches")
+    if abs(res_p.iterations - res.iterations) > 1 or not dx <= 1e-6:
+        raise AssertionError(f"plain solve {res_p.iterations} its, dx {dx}")
+    return counts["B3"], err
+
+
+def phase_bdia_full():
+    """Phase 9: block-DIA at 1025^2 f32, CG + Jacobi, counting B4."""
+    run, counts = _cli([
+        "-device", "cuda", "-dtype", "f32", "-da_grid_x", "1025", "-da_grid_y", "1025",
+        "-mat_type", "bdia", "-ksp_type", "cg", "-pc_type", "jacobi", "-ksp_rtol", "1e-5",
+        "-ksp_converged_reason", "-log_view", "-no_vtk",
+    ], ("B4",))
+    t = run.log.phases["KSPSolve"].total_s
+    its = run.result.iterations
+    print(f"1025^2 f32 block-DIA CG+Jacobi: {its} its, {t:.4f} s, {t / its * 1e3:.4f} ms/it")
+    return counts["B4"]
+
+
+def phase_saddle_gamg():
+    """Phase 10: the saddle route with a gamg inner solve, B1 and B3."""
+    run, counts = _cli([
+        "-device", "cuda", "-dtype", "f64", "-problem_type", "saddle", "-body_force", "trig",
+        "-da_grid_x", "257", "-da_grid_y", "257", "-fieldsplit_inner_pc_type", "gamg",
+        "-ksp_rtol", "1e-8", "-ksp_converged_reason", "-log_view", "-no_vtk",
+    ], ("B1", "B3"))
+    prob, res = run.problem, run.result
+    true_rel = (krylov.tnorm(krylov.tsub(prob.rhs, prob.K(res.x))) / krylov.tnorm(prob.rhs)).item()
+    t = run.log.phases["KSPSolve"].total_s
+    print(
+        f"257^2 f64 MINRES + Schur(gamg): {res.iterations} its, {t:.4f} s; "
+        f"true residual {true_rel:.3e}"
+    )
+    if not true_rel <= 1e-6:
+        raise AssertionError(f"true residual {true_rel} > 1e-6")
+
+
 def main():
     t_start = time.perf_counter()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -222,29 +505,45 @@ def main():
     print(subprocess.run([nvcc, "--version"], capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
 
-    _build.load_library()
-    info = _build.build_info()
-    print(f"build: {info.seconds:.2f} s, {info.path}")
-    print("  " + " ".join(info.command) if info.command else "  (loaded an existing build)")
-    print(info.log.strip())
+    t0 = time.perf_counter()
+    for name, info in _build.build_all().items():
+        print(f"build {name}: {info.seconds:.2f} s, {info.path}")
+        print("  " + " ".join(info.command) if info.command else "  (loaded an existing build)")
+        print(info.log.strip())
+    print(f"all builds: {time.perf_counter() - t0:.2f} s")
 
     max_err, timings = phase_kernel(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_f64(tmp)
         phase_f32(tmp)
+        sparse_err, sparse_timings = phase_sparse_kernels(dev, card)
+        phase_formats(tmp)
+        b3_launches, level_err = phase_gamg(dev)
+        b4_launches = phase_bdia_full()
+        phase_saddle_gamg()
 
-    k32, p32 = timings[torch.float32]
+    def row(name, source, replaces, launches, err, key):
+        k, p = key
+        return {
+            "name": name, "route": "cuda",
+            "source": f"saddle_point_petsc_tpu_torch/csrc/{source}",
+            "replaces": f"saddle_point_petsc_tpu/ops/pallas/{replaces}",
+            "launches": launches, "max_abs_err": err, "ms": k, "plain_ms": p,
+        }
+
+    b3_err = max(sparse_err["B3"], level_err)
+    f32 = torch.float32
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{
-        "name": "stencil_spmv (B1)",
-        "route": "cuda",
-        "source": "saddle_point_petsc_tpu_torch/csrc/stencil_spmv.cu",
-        "replaces": "saddle_point_petsc_tpu/ops/pallas/spmv.py:44",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k32,
-        "plain_ms": p32,
-    }]}))
+    # B3 and B3' are one kernel under two entry names: its launches count both
+    print(json.dumps({"kernels": [
+        row("stencil_spmv (B1)", "stencil_spmv.cu", "spmv.py:44", launches, max_err, timings[f32]),
+        row("dia_spmv_2d (B3)", "dia_spmv.cu", "spmv.py:215", b3_launches, b3_err,
+            sparse_timings["B3", f32]),
+        row("dia_spmv (B3', the same kernel)", "dia_spmv.cu", "spmv.py:463", b3_launches, b3_err,
+            sparse_timings["B3'", f32]),
+        row("bdia_spmv_2d (B4)", "bdia_spmv.cu", "spmv.py:335", b4_launches, sparse_err["B4"],
+            sparse_timings["B4", f32]),
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

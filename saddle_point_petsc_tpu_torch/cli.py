@@ -12,17 +12,26 @@ Flags follow the JAX CLI and PETSc:
   -problem_type {poisson,saddle}  poisson = vector Laplace (GMRES/Jacobi by
                                   default); saddle = full KKT system
                                   (MINRES/Schur fieldsplit by default)
-  -body_force {constant,trig}
+  -body_force {constant,trig}     (the stencil routes; aij/dia/bdia take
+                                  the constant force, as in the JAX CLI)
+  -mat_type {stencil,aij,dia,bdia} Poisson operator storage: stencil
+                                  planes [default], general-sparse CSR
+                                  (MATAIJ), banded DIA (kernel B3) or 2x2
+                                  block-DIA (kernel B4); no effect on the
+                                  saddle route
   -ksp_type/-pc_type/-ksp_rtol/-ksp_atol/-ksp_max_it/-ksp_monitor
-  -ksp_converged_reason           (see solvers/ksp.py for the full set)
+  -ksp_converged_reason           (see solvers/ksp.py for the full set,
+                                  -pc_type gamg among them)
   -A_mat_view -f_vec_view -solution_view     object viewers
   -vtk <path>                     VTK output file [test.vtk]
   -no_vtk                         skip VTK output
   -log_view                       phase timing report
   -options_left                   warn about unused options
 
--dist, -mesh, -mat_type other than stencil, and -profile belong to later
-slices of the port and raise NotImplementedError.
+-dist (with or without -mat_type), -mesh and -profile belong to later
+slices of the port and raise NotImplementedError. -mat_stencil_backend,
+-mat_dia_backend and -mat_bdia_backend are not read: a tensor's device
+picks plain version or kernel, and -options_left reports them.
 """
 from __future__ import annotations
 
@@ -33,6 +42,8 @@ from typing import Any
 import torch
 
 from saddle_point_petsc_tpu_torch.models import poisson, saddle
+from saddle_point_petsc_tpu_torch.ops import sparse
+from saddle_point_petsc_tpu_torch.ops.stencil import flat_to_field
 from saddle_point_petsc_tpu_torch.solvers.krylov import KrylovResult
 from saddle_point_petsc_tpu_torch.solvers.ksp import KSP
 from saddle_point_petsc_tpu_torch.utils import monitor, viewers, vtk
@@ -47,7 +58,7 @@ class CliRun:
 
     rc: int
     result: KrylovResult
-    problem: Any  # PoissonProblem or SaddleProblem
+    problem: Any  # PoissonProblem, SaddleProblem or AijProblem
     ksp: KSP
     log: monitor.LogView
 
@@ -61,15 +72,23 @@ def _device(opts):
     return torch.device(name)
 
 
+@dataclasses.dataclass(frozen=True)
+class AijProblem:
+    """The Poisson system of the -mat_type aij|dia|bdia route: A a CSR, DIA
+    or BDIA operator, f the flat interleaved right-hand side, bc_mask the
+    (n,) eliminated rows, coords (ny, nx, 2)."""
+
+    A: Any
+    f: torch.Tensor
+    bc_mask: torch.Tensor
+    coords: torch.Tensor
+
+
 def _refuse_later_slices(opts):
     if opts.get_bool("dist") or opts.has("mesh"):
         raise NotImplementedError(
-            "-dist/-mesh: the distributed operators are ROADMAP.md A.18-A.24"
-        )
-    mat_type = opts.get_str("mat_type", "stencil")
-    if mat_type != "stencil":
-        raise NotImplementedError(
-            f"-mat_type {mat_type}: the general sparse formats are ROADMAP.md A.15"
+            "-dist/-mesh: the distributed operators (and MATMPIAIJ for "
+            "-mat_type aij -dist) are ROADMAP.md A.18-A.24"
         )
     if opts.has("profile"):
         raise NotImplementedError("-profile: device tracing is ROADMAP.md A.9")
@@ -93,8 +112,24 @@ def run(argv=None) -> CliRun:
     if problem_type not in ("poisson", "saddle"):
         raise ValueError(f"-problem_type {problem_type}: use poisson or saddle")
     body_force = opts.get_str("body_force", "constant")
+    mat_type = opts.get_str("mat_type", "stencil")
+    aij_n = None  # rows of the flat -mat_type aij|dia|bdia solution
     with log.phase("Assembly"):
-        if problem_type == "saddle":
+        if mat_type in ("aij", "dia", "bdia") and problem_type == "poisson":
+            # MATAIJ route: the same system through the general sparse layer
+            csr, f_flat, mask, coords = poisson.assemble_poisson_csr(
+                nex, ney, dtype=dtype, device=device
+            )
+            aij_n = csr.shape[0]
+            if mat_type == "dia":
+                A, _ = sparse.csr_to_dia(csr)
+            elif mat_type == "bdia":  # 2x2 blocks: the dof-interleaved layout
+                A = sparse.bsr_to_bdia(sparse.csr_to_bsr(csr, block=2))
+            else:
+                A = csr
+            b = f_flat
+            prob = AijProblem(A, f_flat, mask, coords)
+        elif problem_type == "saddle":
             prob = saddle.assemble_saddle(nex, ney, dtype=dtype, device=device, body_force=body_force)
             A, b = prob.K, prob.rhs
         else:
@@ -136,6 +171,8 @@ def run(argv=None) -> CliRun:
     viewers.view_from_options(u, opts, "solution_view", "u")
     if not opts.get_bool("no_vtk"):
         with log.phase("WriteVTK"):
+            if aij_n is not None:  # flat MATAIJ solution -> field
+                u = flat_to_field(u[:aij_n], my, mx)
             vtk.write_vtk(opts.get_str("vtk", "test.vtk"), prob.coords, u)
 
     if opts.get_bool("log_view"):

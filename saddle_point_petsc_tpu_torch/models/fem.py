@@ -7,6 +7,7 @@
 - element stiffness of the vector-Laplace ("stress") operator
 - element load vector
 - uniform node coordinates and per-element corner coordinates
+- global equation numbers per element (the CSR assembly)
 
 Node numbering within an element is CCW from the lower-left corner:
 
@@ -184,6 +185,27 @@ def element_corner_coords(node_coords):
     c11 = node_coords[1:, 1:]
     c01 = node_coords[:-1, 1:]
     return torch.stack([c00, c10, c11, c01], dim=-2)
+
+
+def element_eqnums(nex, ney, nx_nodes=None, device=None):
+    """Global equation numbers per element, (ney, nex, 8) int64.
+
+    Natural ordering: node (i, j) -> j * nx_nodes + i, dofs interleaved,
+    eqn = node * 2 + c; corners CCW from the lower left as in
+    element_corner_coords.
+    """
+    if nx_nodes is None:
+        nx_nodes = nex + 1
+    ei = torch.arange(nex, dtype=torch.int64, device=device)
+    ej = torch.arange(ney, dtype=torch.int64, device=device)
+    J, I = torch.meshgrid(ej, ei, indexing="ij")  # (ney, nex)
+    n0 = J * nx_nodes + I
+    n1 = (J + 1) * nx_nodes + I
+    n2 = (J + 1) * nx_nodes + (I + 1)
+    n3 = J * nx_nodes + (I + 1)
+    nodes = torch.stack([n0, n1, n2, n3], dim=-1)  # (ney, nex, 4)
+    eq = torch.stack([nodes * 2, nodes * 2 + 1], dim=-1)  # (ney, nex, 4, 2)
+    return eq.reshape(ney, nex, 8)
 
 
 def batched_element_matrices(node_coords, nex, ney, coeff=None):

@@ -4,7 +4,8 @@
 Unit coefficient, body force f=(1,2) by default, homogeneous Dirichlet
 conditions on the whole boundary, domain [0,1]^2. Assembly runs on the
 device it is given: batched element matrices, strided-slice stencil
-accumulation, symmetric boundary elimination.
+accumulation, symmetric boundary elimination; `assemble_poisson_csr`
+builds the same matrix through COO triplets into CSR.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from saddle_point_petsc_tpu_torch.models import fem
+from saddle_point_petsc_tpu_torch.ops import sparse
 from saddle_point_petsc_tpu_torch.ops.stencil import (
     StencilOperator,
     assemble_stencil,
@@ -79,6 +81,35 @@ def assemble_rhs(coords, body_force=None):
         # in place: f is a fresh accumulator owned by this function
         f[aj : aj + ney, ai : ai + nex] += fe[:, :, a]
     return f
+
+
+def assemble_poisson_csr(nex, ney, dtype=torch.float64, device=None, compact=True):
+    """Assemble the same system in CSR form (the general sparse route).
+
+    COO triplets from all elements -> symmetric boundary elimination ->
+    sort and deduplicate -> CSR, on `device`; `compact` drops the padding.
+    Returns (csr, f, mask, coords): f the flat interleaved right-hand side
+    of the default body force f = (1, 2) (as the JAX package, this route
+    takes no other), mask the (n,) eliminated rows, coords (ny, nx, 2).
+    """
+    coords = fem.uniform_node_coords(nex, ney, dtype=dtype, device=device)
+    ke = fem.batched_element_matrices(coords, nex, ney)
+    eq = fem.element_eqnums(nex, ney, device=coords.device)  # (ney, nex, 8)
+    rows = eq[..., :, None].expand(*eq.shape, 8).reshape(-1)
+    cols = eq[..., None, :].expand(*eq.shape, 8).reshape(-1)
+    vals = ke.reshape(-1)
+    del ke
+    n = (nex + 1) * (ney + 1) * 2
+    coo = sparse.COO(rows, cols, vals, (n, n))
+    mask_field = boundary_mask(ney + 1, nex + 1, device=coords.device)
+    mask = torch.repeat_interleave(mask_field.reshape(-1), 2)
+    coo = sparse.coo_zero_rows_columns(coo, mask, diag=1.0)
+    csr = sparse.coo_to_csr(coo)
+    if compact:
+        csr = sparse.csr_compact(csr)
+    f = assemble_rhs(coords)
+    f = torch.where(mask_field[:, :, None], 0.0, f).reshape(-1)
+    return csr, f, mask, coords
 
 
 def _tensor(a, dtype, device):

@@ -1,19 +1,23 @@
 """Build and load the package's CUDA kernels.
 
-At first use, `load_library()` compiles `csrc/stencil_spmv.cu` with nvcc
-into a shared library with a plain C interface and loads it with ctypes:
+Each kernel source `csrc/<name>.cu` becomes its own shared library with a
+plain C interface, compiled at first use with nvcc and loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o <out> csrc/stencil_spmv.cu
+         -Xcompiler -fPIC -Xptxas -v -o <out> csrc/<name>.cu
 
+`load_library(name)` builds (if needed) and loads one library;
+`build_all()` starts one nvcc for every source at once and waits for all.
 The output goes to `csrc/_build/` inside the package (ignored by git),
-named by a hash of the source text and the flags, so a stale build is
-never loaded. The build runs under an fcntl lock into a temporary name
-and is moved into place with os.replace, so parallel processes do not
-race. Nothing is compiled or loaded when this module is imported.
+named by the source's name and a hash of its text and the flags, so a
+stale build is never loaded. Each build runs under its own fcntl lock
+into a temporary name and is moved into place with os.replace, so
+parallel processes do not race. Nothing is compiled or loaded when this
+module is imported.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import fcntl
@@ -21,12 +25,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "_build"
-SOURCE = CSRC / "stencil_spmv.cu"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -36,16 +40,23 @@ NVCC_FLAGS = (
 
 @dataclasses.dataclass(frozen=True)
 class BuildInfo:
-    """How the loaded library came to be (printed by chip_smoke.py)."""
+    """How one loaded library came to be (printed by chip_smoke.py)."""
 
+    name: str
     path: str
     command: tuple  # the nvcc command line, () when an existing build was loaded
     log: str  # nvcc's output (ptxas register/spill report)
     seconds: float  # wall time of the build and load
 
 
-_lib = None
-_info = None
+_libs = {}
+_infos = {}
+_mutex = threading.Lock()
+
+
+def sources():
+    """Names of the kernel sources, `csrc/<name>.cu`, sorted."""
+    return tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 
 
 def find_nvcc():
@@ -62,23 +73,24 @@ def find_nvcc():
     )
 
 
-def _library_path():
+def _library_path(name):
+    source = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"libstencil_spmv_{digest}.so"
+    return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def _compile(out):
-    """Compile SOURCE into `out` unless another process already has."""
+def _compile(name, out):
+    """Compile csrc/<name>.cu into `out` unless another process already has."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "build.lock", "w") as lock:
+    with open(BUILD_DIR / f"{name}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if out.exists():
                 return (), ""
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = (find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE))
+            cmd = (find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"))
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
@@ -92,27 +104,43 @@ def _compile(out):
             fcntl.flock(lock, fcntl.LOCK_UN)
 
 
-def load_library():
-    """Build (if needed) and load the kernel library; returns the ctypes CDLL."""
-    global _lib, _info
-    if _lib is not None:
-        return _lib
+def load_library(name):
+    """Build (if needed) and load csrc/<name>.cu; returns the ctypes CDLL.
+
+    Every library exports `<name>_error_string(int) -> const char*`; the
+    wrapper module sets the argument types of its own entry points."""
+    with _mutex:
+        if name in _libs:
+            return _libs[name]
     t0 = time.perf_counter()
-    out = _library_path()
-    cmd, log = _compile(out) if not out.exists() else ((), "")
+    out = _library_path(name)
+    cmd, log = _compile(name, out) if not out.exists() else ((), "")
     lib = ctypes.CDLL(str(out))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ("stencil_spmv_f32", "stencil_spmv_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
-        fn.restype = i32
-    lib.stencil_spmv_error_string.argtypes = [i32]
-    lib.stencil_spmv_error_string.restype = ctypes.c_char_p
-    _info = BuildInfo(str(out), cmd, log, time.perf_counter() - t0)
-    _lib = lib
-    return lib
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    with _mutex:
+        _infos[name] = BuildInfo(name, str(out), cmd, log, time.perf_counter() - t0)
+        return _libs.setdefault(name, lib)
 
 
-def build_info():
-    """BuildInfo of the loaded library, or None before load_library()."""
-    return _info
+def build_all(names=None):
+    """Build and load every kernel library, one nvcc per source, all started
+    together; returns {name: BuildInfo}. Raises if any build fails."""
+    names = tuple(names or sources())
+    with concurrent.futures.ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        for _ in pool.map(load_library, names):
+            pass
+    return {n: _infos[n] for n in names}
+
+
+def build_info(name):
+    """BuildInfo of a loaded library, or None before load_library(name)."""
+    return _infos.get(name)
+
+
+def check(lib, name, rc):
+    """Raise if a launch function returned a CUDA error code."""
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")

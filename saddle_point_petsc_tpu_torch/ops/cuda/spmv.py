@@ -56,20 +56,38 @@ def _check(planes, x, halo):
         raise ValueError("stencil_spmv needs contiguous planes and x")
 
 
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        import ctypes
+
+        from saddle_point_petsc_tpu_torch.ops.cuda import _build
+
+        lib = _build.load_library("stencil_spmv")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        for name in ("stencil_spmv_f32", "stencil_spmv_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+            fn.restype = i32
+        _lib = lib
+    return _lib
+
+
 def _launch(planes, x, padded):
     from saddle_point_petsc_tpu_torch.ops.cuda import _build
 
     global launches
-    lib = _build.load_library()
+    lib = _library()
     ny, nx = planes.shape[-2:]
     y = torch.empty((2, ny, nx), dtype=planes.dtype, device=planes.device)
     fn = lib.stencil_spmv_f32 if planes.dtype == torch.float32 else lib.stencil_spmv_f64
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
         rc = fn(planes.data_ptr(), x.data_ptr(), y.data_ptr(), ny, nx, int(padded), stream)
-    if rc != 0:
-        msg = lib.stencil_spmv_error_string(rc).decode()
-        raise RuntimeError(f"stencil_spmv launch failed: {msg} ({rc})")
+    _build.check(lib, "stencil_spmv", rc)
     launches += 1
     return y
 

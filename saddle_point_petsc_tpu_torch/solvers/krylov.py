@@ -1,5 +1,6 @@
 """Krylov solvers, main-path subset (PyTorch twin of
-`saddle_point_petsc_tpu.solvers.krylov`): CG, MINRES, GMRES and FGMRES.
+`saddle_point_petsc_tpu.solvers.krylov`): CG, MINRES, GMRES and FGMRES,
+and the fixed-count Chebyshev iteration that smooths the gamg levels.
 
 A vector is a tensor or a tuple of tensors (a KKT vector is `(u, lam)`);
 operators and preconditioners are callables from vector to vector.
@@ -441,6 +442,52 @@ def fgmres(
     true residual norm."""
     x0 = tzeros_like(b) if x0 is None else x0
     return _gmres_impl(A, b, M, x0, rtol, atol, dtol, maxiter, restart, monitor, True)
+
+
+# ---------------------------------------------------------------------------
+# Chebyshev (fixed count, the AMG smoother)
+# ---------------------------------------------------------------------------
+
+def chebyshev_iterate(A: Callable, b, M: Optional[Callable] = None, x0=None,
+                      lmin=0.1, lmax=1.1, maxiter=10):
+    """x after `maxiter` Chebyshev semi-iterations on bounds [lmin, lmax] of
+    M A (three-term recurrence, no inner products, no host sync). The
+    coefficients are host floats."""
+    M = M or _identity
+    x0 = tzeros_like(b) if x0 is None else x0
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma1 = theta / delta
+    z = M(tsub(b, A(x0)))
+    rho = 1.0 / sigma1
+    d = tscale(1.0 / theta, z)
+    x = tadd(x0, d)
+    for _ in range(1, maxiter):
+        z = M(tsub(b, A(x)))
+        rho_new = 1.0 / (2.0 * sigma1 - rho)
+        d = tadd(tscale(rho_new * rho, d), tscale(2.0 * rho_new / delta, z))
+        x = tadd(x, d)
+        rho = rho_new
+    return x
+
+
+def chebyshev_fixed(
+    A: Callable,
+    b,
+    M: Optional[Callable] = None,
+    x0=None,
+    lmin=0.1,
+    lmax=1.1,
+    maxiter=10,
+):
+    """Fixed-count Chebyshev semi-iteration on bounds [lmin, lmax] of M A,
+    as a KrylovResult with the final true residual norm (CONVERGED_ITS).
+    ChebyshevPC applies `chebyshev_iterate`, which skips that residual."""
+    x = chebyshev_iterate(A, b, M, x0, lmin, lmax, maxiter)
+    rnorm, bnorm = torch.stack([tnorm(tsub(b, A(x))), tnorm(b)]).tolist()
+    hist = torch.full((maxiter + 1,), -1.0, dtype=torch.float64)
+    hist[0] = rnorm
+    return KrylovResult(x, maxiter, rnorm, bnorm, hist, CONVERGED_ITS)
 
 
 SOLVERS = {

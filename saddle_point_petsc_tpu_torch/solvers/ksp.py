@@ -7,14 +7,19 @@ Supported options (prefix-scoped):
   -ksp_max_it <n> [10000]   -ksp_gmres_restart <m> [30]
   -ksp_norm_type {preconditioned,unpreconditioned,natural} (CG)
   -ksp_monitor   -ksp_converged_reason   -ksp_view
-  -pc_type {none,jacobi} on an operator with .diagonal(), {none,fieldsplit}
-           on a SaddleOperator  [jacobi]
+  -pc_type {none,jacobi,gamg} on a stencil, CSR or DIA operator ({none,
+           jacobi} on block-DIA), {none,fieldsplit} on a SaddleOperator
+           [jacobi]
+  -pc_gamg_threshold <t> [0.08]   -pc_gamg_coarse_eq_limit <n> [500]
+  -pc_mg_levels <n> [10]   -pc_mg_cycles {1,2} [1]   -pc_gamg_smooth_its <k> [2]
   -pc_fieldsplit_type schur
   -pc_fieldsplit_schur_fact_type {diag,lower,upper,full}
-  -fieldsplit_inner_pc_type {jacobi,none}  (the Schur A-block solve)
+  -fieldsplit_inner_pc_type {jacobi,none,gamg}  (the Schur A-block solve)
 
-Other KSP and PC types of the JAX package raise NotImplementedError naming
-the ROADMAP.md item that ports them.
+Other KSP and PC types of the JAX package (pbjacobi, sor, bjacobi, ilu,
+chebyshev, fieldsplit on the stencil, mg; bcgs, richardson, chebyshev),
+an inner KSP (-fieldsplit_inner_ksp_type) and KSPMatSolve raise
+NotImplementedError naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import sys
 from typing import Any, Optional
 
 from saddle_point_petsc_tpu_torch.solvers import krylov, precond
+from saddle_point_petsc_tpu_torch.solvers.amg import amg_pc
 from saddle_point_petsc_tpu_torch.solvers.operators import SaddleOperator
 from saddle_point_petsc_tpu_torch.utils.options import Options
 
@@ -33,11 +39,12 @@ _PC_LATER = {
     "sor": "A.11 (rest of precond.py)",
     "bjacobi": "A.11 (rest of precond.py)",
     "ilu": "A.11 (rest of precond.py, ilu_stencil.py)",
-    "chebyshev": "A.11 (rest of precond.py: ChebyshevPC, estimate_lmax)",
+    "chebyshev": "A.11 (rest of precond.py: the chebyshev PC type, estimate_lmax)",
     "fieldsplit": "A.11 (rest of precond.py: fieldsplit on the stencil)",
     "mg": "A.10 (multigrid.py)",
-    "gamg": "A.16 (amg.py)",
 }
+# inner PC types of the Schur A-block solve that this package has
+_INNER_PCS = ("jacobi", "none", "gamg")
 _KSP_LATER = {
     t: "A.11 (rest of krylov.py)" for t in ("bcgs", "richardson", "chebyshev")
 }
@@ -74,10 +81,10 @@ def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
                 "Schur A-solve (KSPInnerPC) is ROADMAP.md A.11"
             )
         inner_pc_type = opts.get_str("fieldsplit_inner_pc_type", "jacobi")
-        if inner_pc_type not in ("jacobi", "none"):
+        if inner_pc_type not in _INNER_PCS:
             raise NotImplementedError(
-                f"-fieldsplit_inner_pc_type {inner_pc_type}: only jacobi and "
-                "none are ported; the others are ROADMAP.md A.10-A.11"
+                f"-fieldsplit_inner_pc_type {inner_pc_type}: only "
+                f"{', '.join(_INNER_PCS)} are ported; the others are ROADMAP.md A.10-A.11"
             )
         inner = make_pc(inner_pc_type, A.A, opts)
         return precond.schur_pc(A.A, A.Bf, inner, fact_type=fact)
@@ -88,6 +95,9 @@ def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
         )
     if pc_type == "jacobi":
         return precond.jacobi(A)
+    if pc_type == "gamg":
+        # PCGAMG (smoothed aggregation) from the assembled matrix alone
+        return amg_pc(A, opts)
     raise ValueError(f"unknown pc_type {pc_type!r}")
 
 

@@ -1,13 +1,14 @@
 """Preconditioners, main-path subset (PyTorch twin of
 `saddle_point_petsc_tpu.solvers.precond`).
 
-IdentityPC, JacobiPC/jacobi, inv_small and the fieldsplit Schur
+IdentityPC, JacobiPC/jacobi (stencil, CSR, DIA, block-DIA), inv_small,
+ChebyshevPC/chebyshev_pc (the gamg smoother) and the fieldsplit Schur
 preconditioner SchurPC/schur_pc for the KKT system. Each PC is a frozen
 dataclass holding tensors, with `__call__(r) -> z` over the same vector
 structure the Krylov solvers use (a tensor or a tuple of tensors). The
 rest of the JAX module (point-block and block Jacobi, ILU(0), SOR,
-Chebyshev, fieldsplit on the stencil, inner KSP) is still to be ported;
-see ROADMAP.md queue A.
+estimate_lmax, fieldsplit on the stencil, inner KSP) is still to be
+ported; see ROADMAP.md queue A.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ from typing import Any
 
 import torch
 
+from saddle_point_petsc_tpu_torch.ops import sparse as sp
+from saddle_point_petsc_tpu_torch.solvers.krylov import chebyshev_iterate
 from saddle_point_petsc_tpu_torch.solvers.operators import (
     constraint_apply,
     constraint_apply_t,
@@ -41,13 +44,36 @@ class JacobiPC:
 
 
 def _inv_diag(A):
-    d = A.diagonal()
+    d = sp.csr_extract_diagonal(A) if isinstance(A, sp.CSR) else A.diagonal()
     return 1.0 / torch.where(d == 0, 1.0, d)
 
 
 def jacobi(A) -> JacobiPC:
-    """Jacobi PC of any operator exposing .diagonal()."""
+    """Jacobi PC of a CSR or of any operator exposing .diagonal()."""
     return JacobiPC(_inv_diag(A))
+
+
+@dataclasses.dataclass(frozen=True)
+class ChebyshevPC:
+    """A fixed number of Chebyshev iterations with an inner PC (e.g. Jacobi):
+    the gamg level smoother, free of inner products."""
+
+    A: Any
+    inner: Any
+    lmin: float
+    lmax: float
+    iters: int
+
+    def __call__(self, r):
+        return chebyshev_iterate(
+            self.A, r, M=self.inner, lmin=self.lmin, lmax=self.lmax, maxiter=self.iters
+        )
+
+
+def chebyshev_pc(A, inner=None, lmin=0.1, lmax=1.1, iters=3) -> ChebyshevPC:
+    if inner is None:
+        inner = jacobi(A)
+    return ChebyshevPC(A, inner, lmin, lmax, iters)
 
 
 def inv_small(M):

@@ -3,8 +3,8 @@
 
 When the flag is in the options database, dump the object: ASCII to
 stdout by default, or to `path:npz` / `path.txt` style targets. Above
-`DENSE_LIMIT` rows a StencilOperator is dumped as (row, col, value)
-triplets instead of being densified.
+`DENSE_LIMIT` rows a StencilOperator, CSR, DIA or block-DIA operator is
+dumped as (row, col, value) triplets instead of being densified.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import sys
 import numpy as np
 import torch
 
+from saddle_point_petsc_tpu_torch.ops import sparse as sp
 from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator, stencil_to_coo
 
 # above this many rows, sparse operators are viewed as COO triplets
@@ -29,7 +30,7 @@ def _resolve_target(value):
 
 
 def view_from_options(obj, opts, flag, name=""):
-    """Dump `obj` (a tensor or a StencilOperator) if `flag` is present."""
+    """Dump `obj` (a tensor or a sparse operator) if `flag` is present."""
     if not opts.has(flag):
         return False
     target, fmt = _resolve_target(opts.get_str(flag, ""))
@@ -58,6 +59,11 @@ def _to_view(obj):
             np.add.at(dense, (rows[keep], cols[keep]), vals[keep])
             return "dense", dense
         return "coo", _coo_payload(rows, cols, vals, (obj.n, obj.n))
+    if isinstance(obj, (sp.CSR, sp.DIA, sp.BDIA)):
+        if obj.shape[0] <= DENSE_LIMIT:
+            return "dense", obj.todense().detach().cpu().numpy()
+        a = sp.to_scipy(obj).tocoo()
+        return "coo", _coo_payload(a.row, a.col, a.data, obj.shape)
     if isinstance(obj, torch.Tensor):
         return "dense", obj.detach().cpu().numpy()
     return "dense", np.asarray(obj)

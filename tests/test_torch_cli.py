@@ -48,14 +48,27 @@ def _vtk_parts(path):
     return lines[:head], words, np.array(nums)
 
 
+_G17 = ["-da_grid_x", "17", "-da_grid_y", "17"]
+_CG = ["-ksp_type", "cg", "-ksp_rtol", "1e-8"]
+
+
 @pytest.mark.parametrize(
     "args",
     [
         ["-da_grid_x", "9", "-da_grid_y", "9", "-problem_type", "saddle",
          "-body_force", "trig", "-ksp_rtol", "1e-8"],
         [],  # the default route: 4x4 nodes, Poisson, GMRES + Jacobi
+        _G17 + ["-mat_type", "aij", "-pc_type", "jacobi"] + _CG,
+        _G17 + ["-mat_type", "dia", "-pc_type", "jacobi"] + _CG,
+        _G17 + ["-mat_type", "bdia", "-pc_type", "jacobi"] + _CG,
+        _G17 + ["-mat_type", "dia", "-pc_type", "gamg"] + _CG,
+        _G17 + ["-mat_type", "aij", "-pc_type", "gamg"],  # GMRES + gamg
+        _G17 + ["-pc_type", "gamg"] + _CG,  # gamg from the stencil operator
+        _G17 + ["-problem_type", "saddle", "-body_force", "trig",
+                "-fieldsplit_inner_pc_type", "gamg", "-ksp_rtol", "1e-8"],
     ],
-    ids=["saddle9", "default"],
+    ids=["saddle9", "default", "aij17", "dia17", "bdia17", "dia17-gamg",
+         "aij17-gmres-gamg", "stencil17-gamg", "saddle17-gamg"],
 )
 def test_cli_matches_jax(tmp_path, capsys, args):
     args = args + ["-ksp_converged_reason"]
@@ -91,7 +104,8 @@ def test_vtk_roundtrip(tmp_path):
 
 def test_port_never_imports_jax(tmp_path):
     """Importing every module of the port and running its CLI on the CPU
-    leaves jax out of the process."""
+    (the saddle route, and -mat_type dia with gamg) leaves jax out of the
+    process."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import saddle_point_petsc_tpu_torch as p\n"
@@ -100,6 +114,10 @@ def test_port_never_imports_jax(tmp_path):
         "from saddle_point_petsc_tpu_torch import cli\n"
         "rc = cli.main(['-device', 'cpu', '-problem_type', 'saddle', '-body_force', 'trig',\n"
         "               '-da_grid_x', '6', '-da_grid_y', '5', '-ksp_converged_reason'])\n"
+        "assert rc == 0, rc\n"
+        "rc = cli.main(['-device', 'cpu', '-mat_type', 'dia', '-pc_type', 'gamg', '-ksp_type', 'cg',\n"
+        "               '-da_grid_x', '21', '-da_grid_y', '19', '-ksp_converged_reason',\n"
+        "               '-vtk', 'dia.vtk'])\n"
         "assert rc == 0, rc\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
         "assert not bad, bad\n"
@@ -111,8 +129,9 @@ def test_port_never_imports_jax(tmp_path):
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert "CONVERGED_RTOL" in proc.stdout and "no jax" in proc.stdout
-    assert (tmp_path / "test.vtk").exists()
+    assert proc.stdout.count("reason=CONVERGED_RTOL") == 2 and "no jax" in proc.stdout
+    assert "pc=gamg" in proc.stdout
+    assert (tmp_path / "test.vtk").exists() and (tmp_path / "dia.vtk").exists()
 
 
 @pytest.mark.parametrize("argv", [["-device", "cuda"], []], ids=["explicit", "default"])
@@ -128,7 +147,8 @@ def test_device_cuda_without_card_raises(argv):
     [
         ["-dist"],
         ["-mesh", "2,2"],
-        ["-mat_type", "aij"],
+        ["-mat_type", "aij", "-dist"],
+        ["-pc_type", "mg"],
         ["-profile", "trace"],
         ["-pc_type", "ilu"],
         ["-ksp_type", "bcgs"],
@@ -140,11 +160,21 @@ def test_later_slices_raise_not_implemented(extra):
         tcli.main(["-device", "cpu", "-no_vtk"] + extra)
 
 
-def test_unread_backend_flag_is_reported(capsys):
+@pytest.mark.parametrize(
+    "flag,route",
+    [
+        ("mat_stencil_backend", []),
+        ("mat_dia_backend", ["-mat_type", "dia"]),
+        ("mat_bdia_backend", ["-mat_type", "bdia"]),
+    ],
+)
+def test_unread_backend_flag_is_reported(capsys, flag, route):
+    """The port has no backend switch (a tensor's device picks plain
+    version or kernel), so -options_left reports the JAX CLI's flag."""
     assert tcli.main(
-        ["-device", "cpu", "-no_vtk", "-mat_stencil_backend", "pallas", "-options_left"]
+        ["-device", "cpu", "-no_vtk", f"-{flag}", "pallas", "-options_left"] + route
     ) == 0
-    assert "unused option: -mat_stencil_backend" in capsys.readouterr().err
+    assert f"unused option: -{flag}" in capsys.readouterr().err
 
 
 def test_viewers_match_jax(tmp_path, capsys):
@@ -158,6 +188,20 @@ def test_viewers_match_jax(tmp_path, capsys):
     assert tview(tp.f, Options(["-f_vec_view"]), "f_vec_view", "f")
     assert "f =" in capsys.readouterr().out
     assert not tview(tp.f, Options(), "not_set")
+
+
+@pytest.mark.parametrize("mat_type", ["aij", "dia", "bdia"])
+def test_mat_view_of_sparse_routes_matches_jax_csr(tmp_path, mat_type):
+    """-A_mat_view on the -mat_type routes dumps the operator the JAX CLI
+    dumps for -mat_type aij (its dense CSR view)."""
+    args = ["-da_grid_x", "5", "-da_grid_y", "4", "-no_vtk"]
+    jnpz, tnpz = tmp_path / "j.npz", tmp_path / "t.npz"
+    assert jcli.main(args + ["-mat_type", "aij", "-A_mat_view", f"{jnpz}:npz"]) == 0
+    run = tcli.run(args + ["-device", "cpu", "-mat_type", mat_type, "-A_mat_view", f"{tnpz}:npz"])
+    assert run.rc == 0
+    np.testing.assert_allclose(
+        np.load(tnpz)["A"], np.load(jnpz)["A"], rtol=1e-13, atol=1e-15
+    )
 
 
 def test_viewer_large_sparse_no_densify(tmp_path, capsys):
