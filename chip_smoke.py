@@ -32,12 +32,29 @@ Phases (each passes or raises; the script exits non-zero on any failure):
 8. gamg, 1025^2 nodes (2,101,250 rows) f64, -mat_type dia -ksp_type cg
    -pc_type gamg to rtol 1e-8 on the unpreconditioned residual (the
    preconditioned norm's 1e-8 leaves a true residual near 1e-5 at this
-   size), counting B3 launches: hierarchy, setup and
-   solve times, true residual, B3 on every DIA level operator against its
-   plain version, and the same hierarchy solved with plain matvecs.
+   size), counting B3 and B5 launches: hierarchy, setup and solve times,
+   true residual, B3 on every DIA level operator and B5 on every ELL level
+   operator against their plain versions, and the same hierarchy solved
+   with plain matvecs.
 9. Block-DIA, 1025^2 f32, CG + Jacobi to rtol 1e-5, counting B4 launches.
 10. The main path with a gamg inner solve: 257^2 f64 saddle route with
     -fieldsplit_inner_pc_type gamg to rtol 1e-8, B1 and B3 both launched.
+11. Kernels B2, B5 and B6 against their plain versions, f32 and f64: B2
+    for k = 1, 3, 8 fields on grids 4x4 to 1025x1025 with assembled and
+    random planes, each field also against B1 on it; B5 on every ELL level
+    of phase 8's hierarchy and on random ELL (widths 1-64, padding slots,
+    n = 1000 and 100003); B6 on phase 8's 1025^2 DIA operator and random
+    bands for k = 1, 4, 8, X row-major and the transpose of a (k, n)
+    batch, each column also against B3. Then each timed at 1025^2 (B2 and
+    B6 at k = 8, B5 on level 1 of the hierarchy), and B5 against B3 on
+    level 0 stored both ways.
+12. KSPMatSolve on the stencil, counting B2 launches: 1025^2 f32, k = 8
+    right-hand sides f (1 + 0.1 i), CG + Jacobi to rtol 1e-5, per-column
+    true residuals; 257^2 f64, k = 4, rtol 1e-8, each column against a
+    single-right-hand-side CG (kernel B1) of that column.
+13. KSPMatSolve on phase 8's 1025^2 DIA operator, f64, k = 4, CG + gamg
+    to rtol 1e-10, counting B6, B3 and B5 launches; per-column true
+    residuals.
 
 The last lines are the kernels JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}.
@@ -59,20 +76,24 @@ import torch
 from saddle_point_petsc_tpu_torch import cli
 from saddle_point_petsc_tpu_torch.models import poisson
 from saddle_point_petsc_tpu_torch.ops import sparse
-from saddle_point_petsc_tpu_torch.ops.cuda import _build, bdia, dia, spmv
+from saddle_point_petsc_tpu_torch.ops.cuda import _build, bdia, dia, dia_spmm, ell, spmm, spmv
 from saddle_point_petsc_tpu_torch.ops.stencil import field_to_flat
 from saddle_point_petsc_tpu_torch.solvers import amg, krylov, precond
+from saddle_point_petsc_tpu_torch.solvers.ksp import KSP
 from saddle_point_petsc_tpu_torch.solvers.operators import SaddleOperator
+from saddle_point_petsc_tpu_torch.utils.options import Options
 
 # (nx, ny) nodes: ragged small grids up to 1025^2, the main path's 256^2 and 257^2 among them
 GRIDS = ((4, 4), (7, 5), (33, 17), (257, 129), (256, 256), (257, 257), (1025, 1025))
 # node grids of the assembled DIA and block-DIA operators checked in phase 6
 SPARSE_GRIDS = ((4, 4), (7, 5), (33, 17), (257, 257), (1025, 1025))
-# B1: the kernel and its plain version sum the same 36 products in the
-# same order; only FMA contraction differs, so they agree to a few ulps of
-# max|y|. B3 and B4 round each product and sum as the plain versions do
-# and are held to the same bounds (expected: equal bits).
+# B1 and B2: the kernel and its plain version sum the same 36 products in
+# the same order; only FMA contraction differs, so they agree to a few ulps
+# of max|y|. B3, B4, B5 and B6 round each product and sum as the plain
+# versions do and are held to the same bounds (expected: equal bits).
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# kernel modules and their launch counters, by kernel name
+COUNTERS = {"B1": spmv, "B2": spmm, "B3": dia, "B4": bdia, "B5": ell, "B6": dia_spmm}
 BENCH_R04_KKT_ITERATIONS = 452  # BENCH_r04.json kkt_iterations (256^2, f32, rtol 1e-5)
 
 
@@ -166,18 +187,26 @@ def phase_kernel(dev, card):
     return max_err, timings
 
 
+def _reset_counts():
+    for mod in COUNTERS.values():
+        mod.reset_launches()
+
+
+def _counts():
+    return {name: mod.launches for name, mod in COUNTERS.items()}
+
+
 def _cli(argv, kernels=("B1",)):
     """One in-process CLI run with every kernel count set to 0 just before;
     returns (CliRun, {name: launches during it}). Each named kernel must
     have launched at least once per iteration."""
     print("$ python -m saddle_point_petsc_tpu_torch.cli " + " ".join(argv), flush=True)
-    for mod in (spmv, dia, bdia):
-        mod.reset_launches()
+    _reset_counts()
     run = cli.run(argv)
-    counts = {"B1": spmv.launches, "B3": dia.launches, "B4": bdia.launches}
+    counts = _counts()
     res = run.result
     print(
-        f"launches B1 {counts['B1']} B3 {counts['B3']} B4 {counts['B4']}, "
+        f"launches {' '.join(f'{k} {v}' for k, v in counts.items())}, "
         f"iterations {res.iterations}, reason {res.reason_name()}"
     )
     if run.rc != 0 or res.reason_name() != "CONVERGED_RTOL":
@@ -244,16 +273,18 @@ def phase_f32(tmp):
                 raise AssertionError(f"{its} iterations, not within 20% of {BENCH_R04_KKT_ITERATIONS}")
 
 
-def _compare(label, got, ref, dtype):
-    """|got - ref| <= TOL * max|ref|, printed; returns the max abs error."""
+def _compare(label, got, ref, dtype, quiet=False):
+    """|got - ref| <= TOL * max|ref|, printed unless quiet; returns the max
+    abs error."""
     torch.cuda.synchronize()
     err = (got - ref).abs().max().item()
     scale = max(ref.abs().max().item(), 1e-300)
     ok = err <= TOL[dtype] * scale
-    print(
-        f"{label} {str(dtype)[6:]:<8} max|dy|={err:.3e} max|y|={scale:.3e} "
-        f"rel={err / scale:.3e} tol={TOL[dtype]:g} {'ok' if ok else 'FAIL'}"
-    )
+    if not quiet or not ok:
+        print(
+            f"{label} {str(dtype)[6:]:<8} max|dy|={err:.3e} max|y|={scale:.3e} "
+            f"rel={err / scale:.3e} tol={TOL[dtype]:g} {'ok' if ok else 'FAIL'}"
+        )
     if not ok:
         raise AssertionError(f"{label} disagrees with its plain version ({dtype})")
     return err
@@ -268,9 +299,28 @@ def _check_dia(label, data, x, offsets, dtype):
     )
 
 
+def _check_ell(label, cols_t, vals_t, x, dtype):
+    ref = ell.ell_spmv_plain(cols_t, vals_t, x)
+    return _compare(f"B5  {label:<36}", ell.ell_spmv(cols_t, vals_t, x), ref, dtype)
+
+
 def _check_bdia(label, data, xb, offsets, active, dtype):
     ref = bdia.bdia_spmv_plain(data, xb, offsets, active)
     return _compare(f"B4  {label:<36}", bdia.bdia_spmv_2d(data, xb, offsets, active), ref, dtype)
+
+
+def _timed_pair(name, plain, kernel, label, nbytes, card):
+    """Median device times in the order plain, kernel, kernel, plain; prints
+    both and returns (kernel ms, plain ms), each the better median."""
+    tp1, tk1, tk2, tp2 = (_median_ms(f) for f in (plain, kernel, kernel, plain))
+    tk, tp = min(tk1, tk2), min(tp1, tp2)
+    for what, t in (("kernel", tk), ("plain", tp)):
+        print(f"{name:<3} time {label} {what:<6} {t * 1e3:9.2f} us {nbytes / t / 1e6:8.1f} GB/s  ({card})")
+    print(
+        f"  medians of 60 in turn (plain, kernel, kernel, plain): {tp1 * 1e3:.2f} "
+        f"{tk1 * 1e3:.2f} {tk2 * 1e3:.2f} {tp2 * 1e3:.2f} us; {nbytes / 1e6:.1f} MB per call"
+    )
+    return tk, tp
 
 
 def phase_sparse_kernels(dev, card):
@@ -334,18 +384,8 @@ def phase_sparse_kernels(dev, card):
              lambda: bdia.bdia_spmv_2d(bdata, xb, B.offsets, B.active),
              (len(B.active) + 4) * mb * es),
         ):
-            tp1, tk1, tk2, tp2 = (_median_ms(f) for f in (plain, kernel, kernel, plain))
-            tk, tp = min(tk1, tk2), min(tp1, tp2)
-            for what, t in (("kernel", tk), ("plain", tp)):
-                print(
-                    f"{name:<3} time {str(dtype)[6:]:<8} 1025x1025 {what:<6} {t * 1e3:9.2f} us "
-                    f"{nbytes / t / 1e6:8.1f} GB/s  ({card})"
-                )
-            print(
-                f"  medians of 60 in turn (plain, kernel, kernel, plain): {tp1 * 1e3:.2f} "
-                f"{tk1 * 1e3:.2f} {tk2 * 1e3:.2f} {tp2 * 1e3:.2f} us; {nbytes / 1e6:.1f} MB per call"
-            )
-            timings[name, dtype] = (tk, tp)
+            timings[name, dtype] = _timed_pair(
+                name, plain, kernel, f"{str(dtype)[6:]:<8} 1025x1025", nbytes, card)
     return err, timings
 
 
@@ -395,28 +435,47 @@ class _PlainDIA:
         return self.A.diagonal()
 
 
+@dataclasses.dataclass(frozen=True)
+class _PlainELL:
+    """A gamg ELL level operator whose matvec is B5's plain version on any
+    device."""
+
+    A: amg._EllOp
+
+    def __call__(self, x):
+        return ell.ell_spmv_plain(self.A.ell.cols_t, self.A.ell.vals_t, x.contiguous())
+
+    def diagonal(self):
+        return self.A.diagonal()
+
+
 def _plain(op):
-    return _PlainDIA(op) if isinstance(op, sparse.DIA) else op
+    if isinstance(op, sparse.DIA):
+        return _PlainDIA(op)
+    return _PlainELL(op) if isinstance(op, amg._EllOp) else op
 
 
 def phase_gamg(dev):
-    """Phase 8: CG + gamg on the 1025^2 DIA operator, counting B3."""
+    """Phase 8: CG + gamg on the 1025^2 DIA operator, counting B3 and B5."""
     n = 1025
     run, counts = _cli([
         "-device", "cuda", "-dtype", "f64", "-da_grid_x", str(n), "-da_grid_y", str(n),
         "-mat_type", "dia", "-ksp_type", "cg", "-pc_type", "gamg", "-ksp_rtol", "1e-8",
         "-ksp_norm_type", "unpreconditioned", "-ksp_converged_reason", "-log_view", "-no_vtk",
-    ], ("B3",))
+    ], ("B3", "B5"))
     prob, res, M = run.problem, run.result, run.ksp.M
     t_setup, t_solve = (run.log.phases[p].total_s for p in ("PCSetUp", "KSPSolve"))
     print(
         f"{n}^2 f64 CG+gamg: {res.iterations} its, PCSetUp {t_setup:.3f} s, KSPSolve "
         f"{t_solve:.4f} s ({t_solve / res.iterations * 1e3:.3f} ms/it), B3 launches {counts['B3']}, "
+        f"B5 launches {counts['B5']}, "
         f"aggregation {amg.aggregation_route}"
     )
     for k, lvl in enumerate(M.levels):
         fmt = type(lvl.A).__name__
         offs = f", {len(lvl.A.offsets)} offsets {lvl.A.offsets}" if fmt == "DIA" else ""
+        if fmt == "_EllOp":
+            offs = f", ELL width {lvl.A.ell.cols_t.shape[0]}"
         print(f"  level {k}: {lvl.agg.shape[0]} rows -> {lvl.n_c}, {fmt}{offs}")
     ci = M.coarse_inv
     split = f" ({ci.iso.shape[0]} decoupled rows + dense {ci.rest.shape[0]})" if hasattr(ci, "iso") else ""
@@ -431,12 +490,18 @@ def phase_gamg(dev):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
-    err = 0.0
+    err = {"B3": 0.0, "B5": 0.0}
     for k, lvl in enumerate(M.levels):
+        label = f"gamg level {k}"
         if isinstance(lvl.A, sparse.DIA):
             x = torch.randn((lvl.A.shape[0],), generator=gen, dtype=torch.float64, device=dev)
-            err = max(err, _check_dia(f"gamg level {k} ({lvl.A.shape[0]} rows)", lvl.A.data, x,
-                                      lvl.A.offsets, torch.float64))
+            err["B3"] = max(err["B3"], _check_dia(f"{label} ({lvl.A.shape[0]} rows)", lvl.A.data, x,
+                                                  lvl.A.offsets, torch.float64))
+        else:
+            E = lvl.A.ell
+            x = torch.randn((E.shape[1],), generator=gen, dtype=torch.float64, device=dev)
+            err["B5"] = max(err["B5"], _check_ell(f"{label} ({E.shape[0]} rows)", E.cols_t, E.vals_t,
+                                                  x, torch.float64))
 
     levels = tuple(
         dataclasses.replace(
@@ -444,7 +509,7 @@ def phase_gamg(dev):
         )
         for lvl in M.levels
     )
-    dia.reset_launches()
+    _reset_counts()
     t0 = time.perf_counter()
     res_p = krylov.cg(_plain(A), b, M=dataclasses.replace(M, levels=levels), rtol=1e-8,
                       maxiter=200, norm_type="unpreconditioned")
@@ -452,14 +517,16 @@ def phase_gamg(dev):
     t_plain = time.perf_counter() - t0
     dx = (krylov.tnorm(res.x - res_p.x) / krylov.tnorm(res_p.x)).item()
     print(
-        f"same hierarchy, plain DIA matvecs: {res_p.iterations} its, {t_plain:.4f} s, "
-        f"B3 launches {dia.launches}; |x_kernel - x_plain|/|x_plain| = {dx:.3e}"
+        f"same hierarchy, plain DIA and ELL matvecs: {res_p.iterations} its, {t_plain:.4f} s, "
+        f"B3 launches {dia.launches}, B5 launches {ell.launches}; "
+        f"|x_kernel - x_plain|/|x_plain| = {dx:.3e}"
     )
-    if dia.launches != 0 or res_p.reason_name() != "CONVERGED_RTOL":
-        raise AssertionError(f"plain solve: {res_p.reason_name()}, {dia.launches} B3 launches")
+    if dia.launches or ell.launches or res_p.reason_name() != "CONVERGED_RTOL":
+        raise AssertionError(
+            f"plain solve: {res_p.reason_name()}, {dia.launches} B3, {ell.launches} B5 launches")
     if abs(res_p.iterations - res.iterations) > 1 or not dx <= 1e-6:
         raise AssertionError(f"plain solve {res_p.iterations} its, dx {dx}")
-    return counts["B3"], err
+    return counts, err, run
 
 
 def phase_bdia_full():
@@ -493,6 +560,238 @@ def phase_saddle_gamg():
         raise AssertionError(f"true residual {true_rel} > 1e-6")
 
 
+def phase_spmm_kernels(dev, card, gamg_run):
+    """Phase 11: B2, B5 and B6 against their plain versions, then timed."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    err = {"B2": 0.0, "B5": 0.0, "B6": 0.0}
+    b2_vs_b1 = 0.0
+    for dtype in (torch.float32, torch.float64):
+        for nx, ny in SPARSE_GRIDS:
+            assembled = poisson.assemble_poisson(
+                nx - 1, ny - 1, dtype=dtype, device=dev, body_force="trig"
+            ).A.planes
+            rand = torch.randn(assembled.shape, generator=gen, dtype=dtype, device=dev)
+            for kind, planes in (("assembled", assembled), ("random-planes", rand)):
+                for k in (1, 3, 8):
+                    XT = torch.randn((k, 2, ny, nx), generator=gen, dtype=dtype, device=dev)
+                    Y = spmm.stencil_spmm(planes, XT)
+                    label = f"{nx}x{ny} k={k} {kind}"
+                    err["B2"] = max(err["B2"], _compare(
+                        f"B2  {label:<36}", Y, spmm.planes_matmat_field(planes, XT), dtype))
+                    for j in range(k):
+                        b2_vs_b1 = max(b2_vs_b1, _compare(
+                            f"B2/B1 {label} field {j}", Y[j], spmv.stencil_spmv(planes, XT[j]), dtype,
+                            quiet=True))
+    print(f"B2 against B1 field by field (60 batches, both dtypes): max|dy| = {b2_vs_b1:.3e} "
+          f"({'bit-equal' if b2_vs_b1 == 0 else 'not bit-equal'})")
+
+    M, A = gamg_run.ksp.M, gamg_run.problem.A
+    for dtype in (torch.float32, torch.float64):
+        for k, lvl in enumerate(M.levels):
+            if isinstance(lvl.A, amg._EllOp):
+                E = lvl.A.ell
+                x = torch.randn((E.shape[1],), generator=gen, dtype=dtype, device=dev)
+                err["B5"] = max(err["B5"], _check_ell(
+                    f"gamg level {k} ({E.shape[0]} rows, K={E.cols_t.shape[0]})",
+                    E.cols_t, E.vals_t.to(dtype), x, dtype))
+        for n in (1000, 100003):
+            for width in (1, 7, 33, 64):
+                cols_t = torch.randint(0, n, (width, n), generator=gen, device=dev, dtype=torch.int32)
+                pad = torch.rand((width, n), generator=gen, device=dev) < 0.25
+                cols_t = torch.where(pad, -1, cols_t).to(torch.int32)
+                vals_t = torch.randn((width, n), generator=gen, dtype=dtype, device=dev)
+                x = torch.randn((n,), generator=gen, dtype=dtype, device=dev)
+                err["B5"] = max(err["B5"], _check_ell(f"random n={n} K={width}", cols_t, vals_t, x, dtype))
+
+    offs = (-300, -17, -1, 0, 3, 129, 255)
+    b6_vs_b3 = 0.0
+    for dtype in (torch.float32, torch.float64):
+        cases = [("1025x1025 assembled", A.data.to(dtype), A.offsets)]
+        for n in (1000, 100003):
+            cases.append((f"random n={n}",
+                          torch.randn((len(offs), n), generator=gen, dtype=dtype, device=dev), offs))
+        for label, data, o in cases:
+            n = data.shape[1]
+            for k in (1, 4, 8):
+                rows = torch.randn((n, k), generator=gen, dtype=dtype, device=dev)
+                for layout, X in (("rows", rows), ("(k,n).T", rows.T.contiguous().T)):
+                    Y = dia_spmm.dia_spmm(data, X, o)
+                    lab = f"{label} k={k} {layout}"
+                    err["B6"] = max(err["B6"], _compare(
+                        f"B6  {lab:<36}", Y, dia_spmm.dia_spmm_plain(data, X, o), dtype))
+                    for j in range(k):
+                        b6_vs_b3 = max(b6_vs_b3, _compare(
+                            f"B6/B3 {lab} col {j}", Y[:, j], dia.dia_spmv_2d(data, X[:, j].contiguous(), o),
+                            dtype, quiet=True))
+    print(f"B6 against B3 column by column: max|dy| = {b6_vs_b3:.3e} "
+          f"({'bit-equal' if b6_vs_b3 == 0 else 'not bit-equal'})")
+
+    timings = {}
+    nx = ny = 1025
+    k = 8
+    for dtype in (torch.float32, torch.float64):
+        es = torch.finfo(dtype).bits // 8
+        dn = str(dtype)[6:]
+        planes = poisson.assemble_poisson(nx - 1, ny - 1, dtype=dtype, device=dev, body_force="trig").A.planes
+        XT = torch.randn((k, 2, *planes.shape[-2:]), generator=gen, dtype=dtype, device=dev)
+        timings["B2", dtype] = _timed_pair(
+            "B2", lambda: spmm.planes_matmat_field(planes, XT), lambda: spmm.stencil_spmm(planes, XT),
+            f"{dn:<8} 1025x1025 k={k}", (36 + 4 * k) * ny * nx * es, card)
+        t_b1 = _median_ms(lambda: [spmv.stencil_spmv(planes, XT[j]) for j in range(k)])
+        print(f"B1 x {k} (one field at a time), {dn}: {t_b1 * 1e3:.2f} us  ({card})")
+
+        data = A.data.to(dtype)
+        n = data.shape[1]
+        Xb = torch.randn((k, n), generator=gen, dtype=dtype, device=dev)
+        nb = (len(A.offsets) + 2 * k) * n * es
+        timings["B6", dtype] = _timed_pair(
+            "B6", lambda: dia_spmm.dia_spmm_plain(data, Xb.T, A.offsets),
+            lambda: dia_spmm.dia_spmm(data, Xb.T, A.offsets), f"{dn:<8} 1025x1025 k={k} (k,n).T", nb, card)
+        Xr = Xb.T.contiguous()
+        _timed_pair("B6", lambda: dia_spmm.dia_spmm_plain(data, Xr, A.offsets),
+                    lambda: dia_spmm.dia_spmm(data, Xr, A.offsets), f"{dn:<8} 1025x1025 k={k} rows", nb, card)
+
+        E = M.levels[1].A.ell
+        cols_t, vals_t = E.cols_t, E.vals_t.to(dtype)
+        K, m = cols_t.shape
+        x = torch.randn((E.shape[1],), generator=gen, dtype=dtype, device=dev)
+        timings["B5", dtype] = _timed_pair(
+            "B5", lambda: ell.ell_spmv_plain(cols_t, vals_t, x), lambda: ell.ell_spmv(cols_t, vals_t, x),
+            f"{dn:<8} gamg level 1 ({m} rows, K={K})", K * m * (4 + es) + (E.shape[1] + m) * es, card)
+
+    # ROADMAP A.25: level 0 of the hierarchy stored as DIA (B3) and as ELL (B5)
+    L0 = M.levels[0].A
+    E0 = amg._scipy_to_ell(amg._to_scipy(L0), torch.float64, dev)
+    K0, n0 = E0.cols_t.shape
+    x = torch.randn((n0,), generator=gen, dtype=torch.float64, device=dev)
+    y_dia, y_ell = dia.dia_spmv_2d(L0.data, x, L0.offsets), ell.ell_spmv(E0.cols_t, E0.vals_t, x)
+    dy = (y_dia - y_ell).abs().max().item() / y_dia.abs().max().item()
+    td1, te1, te2, td2 = (_median_ms(f) for f in (
+        lambda: dia.dia_spmv_2d(L0.data, x, L0.offsets), lambda: ell.ell_spmv(E0.cols_t, E0.vals_t, x),
+        lambda: ell.ell_spmv(E0.cols_t, E0.vals_t, x), lambda: dia.dia_spmv_2d(L0.data, x, L0.offsets)))
+    print(
+        f"gamg level 0 ({n0} rows, f64): DIA {len(L0.offsets)} bands (B3) {min(td1, td2) * 1e3:.2f} us, "
+        f"ELL width {K0} (B5) {min(te1, te2) * 1e3:.2f} us; medians in turn (B3, B5, B5, B3): "
+        f"{td1 * 1e3:.2f} {te1 * 1e3:.2f} {te2 * 1e3:.2f} {td2 * 1e3:.2f} us; "
+        f"|y_dia - y_ell|/max|y| = {dy:.3e}  ({card})"
+    )
+    if not dy <= 1e-12:
+        raise AssertionError(f"level 0 as ELL disagrees with level 0 as DIA: {dy}")
+    del E0
+    return err, timings
+
+
+def _mat_solve(A, B, argv):
+    """KSPMatSolve with the counts set to 0 just before; returns the KSP,
+    the result, the seconds of PCSetUp and of the solve, and the launches."""
+    ksp = KSP(Options(["-ksp_type", "cg"] + argv))
+    ksp.set_operators(A).set_from_options()
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    ksp.set_up()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = ksp.mat_solve(B)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = _counts()
+    its = res.iterations
+    print(
+        f"KSPMatSolve {' '.join(argv)}: k={B.shape[0]}, {its} its, reasons "
+        f"{res.converged_reason.tolist()}, PCSetUp {t1 - t0:.4f} s, solve {t2 - t1:.4f} s "
+        f"({(t2 - t1) / its * 1e3:.4f} ms/it); launches "
+        f"{' '.join(f'{k} {v}' for k, v in counts.items())}"
+    )
+    if res.converged_reason.tolist() != [krylov.CONVERGED_RTOL] * B.shape[0]:
+        raise AssertionError(f"KSPMatSolve did not converge: {res.converged_reason.tolist()}")
+    return ksp, res, t1 - t0, t2 - t1, counts
+
+
+def _column_its(res, rtol, atol=1e-50):
+    """Each column's iteration count, from the history: the first iteration
+    whose residual norm passed the column's test."""
+    hist, bnorm = res.history, res.rnorm0
+    return [
+        next(j for j in range(res.iterations + 1) if hist[j, c] <= max(rtol * bnorm[c].item(), atol))
+        for c in range(hist.shape[1])
+    ]
+
+
+def _true_residuals(Ab, X, B):
+    """Per-column |b - A x| / |b| in f64."""
+    R = (B - Ab(X)).double().reshape(B.shape[0], -1)
+    return (R.norm(dim=1) / B.double().reshape(B.shape[0], -1).norm(dim=1)).tolist()
+
+
+def phase_mat_solve_stencil(dev):
+    """Phase 12: KSPMatSolve on the stencil through B2."""
+    n, k = 1025, 8
+    prob = poisson.assemble_poisson(n - 1, n - 1, dtype=torch.float32, device=dev)
+    B = torch.stack([prob.f * (1.0 + 0.1 * i) for i in range(k)])
+    ksp, res, _, t, counts = _mat_solve(prob.A, B, ["-pc_type", "jacobi", "-ksp_rtol", "1e-5"])
+    if counts["B2"] < res.iterations:
+        raise AssertionError(f"B2 launched {counts['B2']} times for {res.iterations} iterations")
+    planes64 = prob.A.planes.double()
+    rel = _true_residuals(lambda X: spmm.planes_matmat_field(planes64, X), res.x.double(), B)
+    # an f32 solution cannot leave a small true residual here: kappa(A) is
+    # about 5e5 at 1025^2 nodes, times f32's 6e-8, so the yardstick is a
+    # single-right-hand-side f32 CG (kernel B1) of column 0
+    single = krylov.cg(prob.A, B[0], M=ksp.M, rtol=1e-5, maxiter=10000)
+    rel_s = _true_residuals(lambda X: spmm.planes_matmat_field(planes64, X), single.x[None].double(), B[:1])[0]
+    print(f"{n}^2 f32 k={k} CG+Jacobi: {res.iterations} its, {t / res.iterations * 1e3:.4f} ms/it, "
+          f"per-column iterations {_column_its(res, 1e-5)}, true residuals (f64) "
+          f"{', '.join(f'{r:.3e}' for r in rel)}; single-RHS CG of column 0: {single.iterations} its, "
+          f"true residual {rel_s:.3e}")
+    if not max(rel) <= 2.0 * rel_s:
+        raise AssertionError(f"true residuals {rel}, single-RHS {rel_s}")
+    launches = counts["B2"]
+
+    n, k = 257, 4
+    prob = poisson.assemble_poisson(n - 1, n - 1, dtype=torch.float64, device=dev, body_force="trig")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    f = prob.f
+    B = torch.stack([f, 2.0 * f, f * f, torch.randn(f.shape, generator=gen, dtype=f.dtype, device=dev)])
+    ksp, res, _, t, counts = _mat_solve(prob.A, B, ["-pc_type", "jacobi", "-ksp_rtol", "1e-8"])
+    launches += counts["B2"]
+    cols = _column_its(res, 1e-8)
+    b1 = spmv.launches
+    singles = [krylov.cg(prob.A, B[j], M=ksp.M, rtol=1e-8, maxiter=10000) for j in range(k)]
+    if spmv.launches - b1 < sum(r.iterations for r in singles):
+        raise AssertionError("the single-right-hand-side solves did not run through B1")
+    dxs = [(krylov.tnorm(res.x[j] - r.x) / krylov.tnorm(r.x)).item() for j, r in enumerate(singles)]
+    print(f"{n}^2 f64 k={k} CG+Jacobi: batched per-column iterations {cols}, single-RHS "
+          f"{[r.iterations for r in singles]}, |x_batched - x_single|/|x_single| "
+          f"{', '.join(f'{d:.3e}' for d in dxs)}; {t / res.iterations * 1e3:.4f} ms/it batched")
+    if any(abs(c - r.iterations) > 1 for c, r in zip(cols, singles)) or not max(dxs) <= 1e-9:
+        raise AssertionError(f"batched and single solves differ: {cols}, {dxs}")
+    return launches
+
+
+def phase_mat_solve_dia(dev, gamg_run):
+    """Phase 13: KSPMatSolve with gamg on the 1025^2 DIA operator."""
+    A, f = gamg_run.problem.A, gamg_run.problem.f
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    B = torch.stack([f, 2.0 * f, f * f, torch.randn(f.shape, generator=gen, dtype=f.dtype, device=dev)])
+    _, res, t_setup, t, counts = _mat_solve(A, B, ["-pc_type", "gamg", "-ksp_rtol", "1e-10"])
+    for name in ("B6", "B3", "B5"):
+        if counts[name] == 0:
+            raise AssertionError(f"{name} was not launched")
+    if counts["B6"] < res.iterations:
+        raise AssertionError(f"B6 launched {counts['B6']} times for {res.iterations} iterations")
+    rel = _true_residuals(lambda X: dia_spmm.dia_spmm_plain(A.data, X.T, A.offsets).T, res.x, B)
+    print(f"1025^2 f64 k=4 CG+gamg: {res.iterations} its, per-column iterations "
+          f"{_column_its(res, 1e-10)}, PCSetUp {t_setup:.3f} s, solve {t:.4f} s "
+          f"({t / res.iterations * 1e3:.3f} ms/it), true residuals (f64, plain matvec) "
+          f"{', '.join(f'{r:.3e}' for r in rel)}")
+    if not max(rel) <= 1e-6:
+        raise AssertionError(f"true residuals {rel} > 1e-6")
+    return counts["B6"]
+
+
 def main():
     t_start = time.perf_counter()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -518,9 +817,12 @@ def main():
         phase_f32(tmp)
         sparse_err, sparse_timings = phase_sparse_kernels(dev, card)
         phase_formats(tmp)
-        b3_launches, level_err = phase_gamg(dev)
+        gamg_counts, level_err, gamg_run = phase_gamg(dev)
         b4_launches = phase_bdia_full()
         phase_saddle_gamg()
+        spmm_err, spmm_timings = phase_spmm_kernels(dev, card, gamg_run)
+        b2_launches = phase_mat_solve_stencil(dev)
+        b6_launches = phase_mat_solve_dia(dev, gamg_run)
 
     def row(name, source, replaces, launches, err, key):
         k, p = key
@@ -531,7 +833,9 @@ def main():
             "launches": launches, "max_abs_err": err, "ms": k, "plain_ms": p,
         }
 
-    b3_err = max(sparse_err["B3"], level_err)
+    b3_launches = gamg_counts["B3"]
+    b3_err = max(sparse_err["B3"], level_err["B3"])
+    b5_err = max(spmm_err["B5"], level_err["B5"])
     f32 = torch.float32
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # B3 and B3' are one kernel under two entry names: its launches count both
@@ -543,6 +847,12 @@ def main():
             sparse_timings["B3'", f32]),
         row("bdia_spmv_2d (B4)", "bdia_spmv.cu", "spmv.py:335", b4_launches, sparse_err["B4"],
             sparse_timings["B4", f32]),
+        row("stencil_spmm (B2)", "stencil_spmm.cu", "spmm.py:30", b2_launches, spmm_err["B2"],
+            spmm_timings["B2", f32]),
+        row("ell_spmv (B5)", "ell_spmv.cu", "spmv.py:150", gamg_counts["B5"], b5_err,
+            spmm_timings["B5", f32]),
+        row("dia_spmm (B6)", "dia_spmm.cu", "spmm.py:97", b6_launches, spmm_err["B6"],
+            spmm_timings["B6", f32]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

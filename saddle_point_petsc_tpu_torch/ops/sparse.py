@@ -11,13 +11,15 @@ sizes (sort, deduplicate, keep the padding at the tail); `csr_compact`
 and the conversions to BSR, DIA and block-DIA run on the host with scipy
 at setup time and return tensors on the input's device.
 
-The DIA and block-DIA matvecs go by device alone: CPU tensors take the
-plain versions, CUDA tensors kernels B3 and B4 (`ops/cuda/dia.py`,
-`ops/cuda/bdia.py`). There is no backend switch, so the JAX CLI's
+The ELL, DIA and block-DIA matvecs and the DIA matmat go by device alone:
+CPU tensors take the plain versions, CUDA tensors kernels B5, B3, B4 and
+B6 (`ops/cuda/ell.py`, `ops/cuda/dia.py`, `ops/cuda/bdia.py`,
+`ops/cuda/dia_spmm.py`). There is no backend switch, so the JAX CLI's
 `-mat_dia_backend` and `-mat_bdia_backend` have no counterpart. Sums run
 in the JAX package's order: segment sums in entry order (on the CPU; on a
 CUDA device `torch.segment_reduce` rounds otherwise, by ulps), DIA bands
-in offset order, block-DIA triples in `active` order.
+in offset order, block-DIA triples in `active` order, ELL slots in slot
+order.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ import torch
 
 from saddle_point_petsc_tpu_torch.ops.cuda.bdia import bdia_spmv_2d
 from saddle_point_petsc_tpu_torch.ops.cuda.dia import dia_spmv_2d
+from saddle_point_petsc_tpu_torch.ops.cuda.dia_spmm import dia_spmm
+from saddle_point_petsc_tpu_torch.ops.cuda.ell import ell_spmv
 
 
 def _row_sums(vals, indptr):
@@ -131,11 +135,20 @@ class BSR:
 @dataclasses.dataclass(frozen=True)
 class ELL:
     """ELLPACK: a fixed number of entries per row, padded with col == -1.
-    cols and vals have shape (m, k)."""
+    cols and vals have shape (m, k). Construction also stores the
+    slot-major copy kernel B5 reads, `ell_transpose`'s (k, m) int32 cols_t
+    and vals_t, so no matvec transposes."""
 
     cols: torch.Tensor  # (m, k) int64
     vals: torch.Tensor  # (m, k)
     shape: tuple
+    cols_t: torch.Tensor = dataclasses.field(init=False, repr=False, compare=False)
+    vals_t: torch.Tensor = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        cols_t, vals_t = ell_transpose(self)
+        object.__setattr__(self, "cols_t", cols_t)  # frozen: set once, here
+        object.__setattr__(self, "vals_t", vals_t)
 
     def todense(self):
         m, n = self.shape
@@ -285,7 +298,7 @@ def csr_from_numpy(indptr, cols, vals, shape, device=None, dtype=torch.float64) 
 
 
 # ---------------------------------------------------------------------------
-# SpMV and SpMM (plain PyTorch; DIA and block-DIA go to kernels B3 and B4)
+# SpMV and SpMM (plain PyTorch; ELL, DIA and block-DIA go to kernels)
 # ---------------------------------------------------------------------------
 
 
@@ -300,11 +313,18 @@ def csr_matvec(csr: CSR, x):
     return _row_sums(csr.vals * x[csr.cols.clamp_min(0)], csr.indptr)
 
 
+def ell_transpose(ell: ELL):
+    """(m, k) ELL -> kernel B5's slot-major (k, m) cols_t (int32) and vals_t,
+    contiguous (a copy: setup time, done once by the ELL constructor)."""
+    if ell.shape[1] > 2**31 - 1:
+        raise ValueError(f"ELL with {ell.shape[1]} columns: int32 column indices overflow")
+    return ell.cols.T.to(torch.int32).contiguous(), ell.vals.T.contiguous()
+
+
 def ell_matvec(ell: ELL, x):
-    """y = A x: a dense (m, k) gather and a row sum."""
-    valid = ell.cols >= 0
-    v = torch.where(valid, ell.vals, 0.0)
-    return torch.sum(v * x[ell.cols.clamp_min(0)], dim=1)
+    """y = A x through kernel B5 (its plain version for CPU tensors): one
+    gather and multiply-add per slot, slots summed in order."""
+    return ell_spmv(ell.cols_t, ell.vals_t, x.contiguous())
 
 
 def bsr_matvec(bsr: BSR, x):
@@ -496,19 +516,10 @@ def dia_matvec(dia: DIA, x):
 
 
 def dia_matmat(dia: DIA, X):
-    """Y = A X via shifted row slices of X (no gathers)."""
-    n = dia.shape[0]
-    Y = torch.zeros_like(X)
-    for k, off in enumerate(dia.offsets):
-        if abs(off) >= n:
-            continue
-        if off == 0:
-            Y = Y + dia.data[k][:, None] * X
-        elif off > 0:
-            Y[: n - off] += dia.data[k, : n - off, None] * X[off:]  # in place: Y is ours
-        else:
-            Y[-off:] += dia.data[k, -off:, None] * X[: n + off]
-    return Y
+    """Y = A X for dense X (n, k) of any strides (the transpose of a (k, n)
+    batch among them, without a copy) through kernel B6 (its plain
+    version, shifted row slices of X, for CPU tensors)."""
+    return dia_spmm(dia.data, X, dia.offsets)
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,10 @@ fields (2, ny, nx). A matvec is 36 multiply-adds per node over shifted
 windows of the field: no index arrays and no gathers.
 
 `planes_matvec_padded` / `planes_matvec_field` are the plain PyTorch
-versions of kernel B1 (`ops/cuda/spmv.py`, `csrc/stencil_spmv.cu`).
-`StencilOperator` sends a CPU tensor to them and a CUDA tensor to the
-kernel.
+versions of kernel B1 (`ops/cuda/spmv.py`, `csrc/stencil_spmv.cu`), and
+`planes_matmat_field` that of kernel B2, the SpMM over a batch of k fields
+(`ops/cuda/spmm.py`, `csrc/stencil_spmm.cu`). `StencilOperator` sends a
+CPU tensor to them and a CUDA tensor to the kernels.
 """
 from __future__ import annotations
 
@@ -40,25 +41,33 @@ def planes_to_block(planes):
 def planes_matvec_padded(planes, xpT):
     """y[c] = sum_{dj,di,d} planes[2c+d, dj, di] * xpT[d] windows.
 
-    planes: (4, 3, 3, ny, nx); xpT: (2, ny+2, nx+2) halo-padded dof-major
-    field. Returns (2, ny, nx). Sums in kernel B1's order: dj, then di,
-    then d.
+    planes: (4, 3, 3, ny, nx); xpT: (..., 2, ny+2, nx+2) halo-padded
+    dof-major fields, any leading batch axes. Returns (..., 2, ny, nx).
+    Sums in kernel B1's order: dj, then di, then d; every operation is
+    elementwise, so each field of a batch gets the bits it gets alone.
     """
     ny, nx = planes.shape[-2:]
-    y0 = torch.zeros((ny, nx), dtype=xpT.dtype, device=xpT.device)
+    y0 = torch.zeros((*xpT.shape[:-3], ny, nx), dtype=xpT.dtype, device=xpT.device)
     y1 = y0
     for dj in range(3):
         for di in range(3):
-            w0 = xpT[0, dj : dj + ny, di : di + nx]
-            w1 = xpT[1, dj : dj + ny, di : di + nx]
+            w0 = xpT[..., 0, dj : dj + ny, di : di + nx]
+            w1 = xpT[..., 1, dj : dj + ny, di : di + nx]
             y0 = y0 + planes[0, dj, di] * w0 + planes[1, dj, di] * w1
             y1 = y1 + planes[2, dj, di] * w0 + planes[3, dj, di] * w1
-    return torch.stack([y0, y1])
+    return torch.stack([y0, y1], dim=-3)
 
 
 def planes_matvec_field(planes, xT):
     """Matvec on a dof-major (2, ny, nx) field with a zero boundary."""
     return planes_matvec_padded(planes, F.pad(xT, (1, 1, 1, 1)))
+
+
+def planes_matmat_field(planes, XT):
+    """SpMM on a batch of k dof-major fields with a zero boundary:
+    (k, 2, ny, nx) -> (k, 2, ny, nx). Column j has the bits of
+    planes_matvec_field(planes, XT[j])."""
+    return planes_matvec_padded(planes, F.pad(XT, (1, 1, 1, 1)))
 
 
 def field_to_flat(xT):
@@ -87,8 +96,9 @@ class StencilOperator:
     """3x3-block-stencil operator on an (ny, nx) node grid with 2 dof/node.
 
     Storage is the planes layout (4, 3, 3, ny, nx); vectors are dof-major
-    (2, ny, nx) fields. The matvec goes by device alone: planes on the CPU
-    take the plain PyTorch version, planes on a CUDA device take kernel B1.
+    (2, ny, nx) fields. The matvec and the SpMM go by device alone: planes
+    on the CPU take the plain PyTorch versions, planes on a CUDA device
+    take kernels B1 and B2.
     """
 
     planes: torch.Tensor  # (4, 3, 3, ny, nx)
@@ -130,6 +140,19 @@ class StencilOperator:
         """Natural-ordering flat matvec (interop/tests)."""
         ny, nx = self.grid_shape
         return field_to_flat(self.matvec_field(flat_to_field(xflat, ny, nx)))
+
+    def matmat_field(self, XT):
+        """SpMM on a batch of fields, (k, 2, ny, nx) -> (k, 2, ny, nx)."""
+        from saddle_point_petsc_tpu_torch.ops.cuda.spmm import stencil_spmm
+
+        return stencil_spmm(self.planes, XT.contiguous())
+
+    def matmat(self, X):
+        """Y = A X for dense X (n, k) in the natural flat ordering."""
+        ny, nx = self.grid_shape
+        k = X.shape[1]
+        XT = X.T.reshape(k, ny, nx, 2).permute(0, 3, 1, 2)
+        return self.matmat_field(XT).permute(0, 2, 3, 1).reshape(k, -1).T
 
     def __call__(self, x):
         if x.ndim == 1:

@@ -8,7 +8,8 @@ serial part of `saddle_point_petsc_tpu.solvers.amg`; PETSc -pc_type gamg).
   smoothed by one damped-Jacobi step, Galerkin products, and per-level
   spectral bounds for the Chebyshev smoother.
 - **The cycle runs on the operator's device.** Each level operator is DIA
-  (kernel B3 on a CUDA device) when its bands fit, ELL otherwise. The
+  (kernel B3 on a CUDA device) when its bands fit, ELL (kernel B5)
+  otherwise. The
   transfer operators are never stored: prolongation is s * xc[agg] and
   one level matvec, restriction one level matvec and an `index_add_`.
   The coarsest level is a dense matrix-vector product with a
@@ -38,7 +39,9 @@ from saddle_point_petsc_tpu_torch.solvers import precond
 
 @dataclasses.dataclass(frozen=True)
 class _EllOp:
-    """An ELL matrix as a Krylov/PC operator."""
+    """An ELL matrix as a Krylov/PC operator. The ELL holds kernel B5's
+    slot-major int32 copy, built once with the level, so each matvec
+    launches B5 on a CUDA device without a transpose."""
 
     ell: sp.ELL
 

@@ -1,6 +1,7 @@
 """Krylov solvers, main-path subset (PyTorch twin of
-`saddle_point_petsc_tpu.solvers.krylov`): CG, MINRES, GMRES and FGMRES,
-and the fixed-count Chebyshev iteration that smooths the gamg levels.
+`saddle_point_petsc_tpu.solvers.krylov`): CG, the pseudo-block CG over k
+right-hand sides (`cg_multi`, KSPMatSolve), MINRES, GMRES and FGMRES, and
+the fixed-count Chebyshev iteration that smooths the gamg levels.
 
 A vector is a tensor or a tuple of tensors (a KKT vector is `(u, lam)`);
 operators and preconditioners are callables from vector to vector.
@@ -96,11 +97,11 @@ def tzeros_like(x):
 @dataclasses.dataclass(frozen=True)
 class KrylovResult:
     x: Any
-    iterations: int
-    rnorm: float  # final residual norm (per solver's norm convention)
-    rnorm0: float
-    history: torch.Tensor  # (maxiter+1,) float64 on the CPU, padded with -1
-    converged_reason: int
+    iterations: int  # cg_multi: the slowest column's
+    rnorm: float  # final residual norm (per solver's norm convention); cg_multi: (k,)
+    rnorm0: float  # cg_multi: (k,)
+    history: torch.Tensor  # (maxiter+1,) float64 on the CPU, padded with -1; cg_multi: (maxiter+1, k)
+    converged_reason: int  # cg_multi: (k,) int64 tensor
 
     @property
     def converged(self):
@@ -205,6 +206,101 @@ def cg(
         if pw_h <= 0.0:  # indefinite operator guard
             done, reason = True, DIVERGED_NULL
     return _result(x, history, maxiter, bnorm, reason)
+
+
+def _kdot(x, y):
+    """Per-column dot over a leading-k batch: (k, ...) -> (k,)."""
+    return torch.sum((x * y).reshape(x.shape[0], -1), dim=1)
+
+
+def _kax(a, x, y):
+    """y + a[k] * x with a (k,) broadcast over trailing dims."""
+    return y + a.reshape((-1,) + (1,) * (x.ndim - 1)) * x
+
+
+def cg_multi(
+    A: Callable,
+    B,
+    M: Optional[Callable] = None,
+    x0=None,
+    rtol=1e-5,
+    atol=1e-50,
+    dtol=1e5,
+    maxiter=10000,
+):
+    """Pseudo-block CG over k right-hand sides, PETSc KSPMatSolve semantics.
+
+    A and M are batched callables mapping (k, ...) -> (k, ...), such as the
+    operator's SpMM (`StencilOperator.matmat_field`, kernel B2), so the
+    operator is streamed once per iteration for all k columns. Each column
+    runs its own CG recurrence (its own alpha and beta, frozen at 0 once the
+    column is done) on the preconditioned residual norm. A column converges
+    when rnorm <= max(rtol * bnorm, atol) (CONVERGED_RTOL) and diverges on
+    pw <= 0, a non-finite norm or rnorm > dtol * bnorm (DIVERGED_NULL) or at
+    maxiter (DIVERGED_ITS); the loop stops when every column is done. The
+    test runs on the device, in the vectors' dtype, as the JAX package's;
+    the loop fetches one small (3, k) tensor (norms, done flags, reasons)
+    per iteration.
+
+    Returns a KrylovResult whose x is the (k, ...) solution batch, whose
+    rnorm, rnorm0 (bnorm) and converged_reason are (k,) CPU tensors, whose
+    history is (maxiter+1, k) float64 padded with -1, and whose
+    `iterations` is the slowest column's count.
+    """
+    M = M or _identity
+    X = torch.zeros_like(B) if x0 is None else x0
+    R = B - A(X)
+    Z = M(R)
+    rz = _kdot(R, Z)
+    Zb = M(B)
+    bnorm = torch.sqrt(_kdot(Zb, Zb))
+    rnorm = torch.sqrt(_kdot(Z, Z))
+    thresh = torch.clamp_min(rtol * bnorm, atol)
+    done = rnorm <= thresh
+    reason = torch.where(done, CONVERGED_RTOL, 0)
+
+    def fetch():
+        return torch.stack([t.to(torch.float64) for t in (rnorm, done, reason)]).tolist()
+
+    rn_h, done_h, reason_h = fetch()
+    history = [rn_h]
+    P = Z
+    it = 0
+    while not all(done_h):
+        W = A(P)
+        pw = _kdot(P, W)
+        alpha = torch.where(done, 0.0, rz / torch.where(pw == 0, 1.0, pw))
+        X = _kax(alpha, P, X)
+        R = _kax(-alpha, W, R)
+        Z = M(R)
+        rz_new = _kdot(R, Z)
+        beta = torch.where(done, 0.0, rz_new / torch.where(rz == 0, 1.0, rz))
+        P = _kax(beta, P, Z)
+        rz = rz_new
+        it += 1
+        rnorm = torch.sqrt(_kdot(Z, Z))
+        conv = rnorm <= thresh
+        div = (rnorm > dtol * bnorm) | ~torch.isfinite(rnorm) | (pw <= 0.0)
+        newly = ~done
+        reason = torch.where(
+            newly & conv, CONVERGED_RTOL, torch.where(newly & div, DIVERGED_NULL, reason)
+        )
+        done = done | conv | div | (it >= maxiter)
+        reason = torch.where(done & (reason == 0), DIVERGED_ITS, reason)
+        rn_h, done_h, reason_h = fetch()
+        history.append(rn_h)
+    k = B.shape[0]
+    hist = torch.full((maxiter + 1, k), -1.0, dtype=torch.float64)
+    rows = min(it, maxiter) + 1
+    hist[:rows] = torch.tensor(history[:rows], dtype=torch.float64)
+    return KrylovResult(
+        X,
+        it,
+        torch.tensor(rn_h, dtype=torch.float64),
+        bnorm.to("cpu", torch.float64),
+        hist,
+        torch.tensor(reason_h, dtype=torch.int64),
+    )
 
 
 # ---------------------------------------------------------------------------

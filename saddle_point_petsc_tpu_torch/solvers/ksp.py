@@ -16,10 +16,14 @@ Supported options (prefix-scoped):
   -pc_fieldsplit_schur_fact_type {diag,lower,upper,full}
   -fieldsplit_inner_pc_type {jacobi,none,gamg}  (the Schur A-block solve)
 
+`KSP.mat_solve` (KSPMatSolve) solves for a batch of k right-hand sides
+with the pseudo-block CG (-ksp_type cg only, as in the JAX package) on a
+stencil, CSR or DIA operator with -pc_type none, jacobi or gamg.
+
 Other KSP and PC types of the JAX package (pbjacobi, sor, bjacobi, ilu,
-chebyshev, fieldsplit on the stencil, mg; bcgs, richardson, chebyshev),
-an inner KSP (-fieldsplit_inner_ksp_type) and KSPMatSolve raise
-NotImplementedError naming the ROADMAP.md item that ports them.
+chebyshev, fieldsplit on the stencil, mg; bcgs, richardson, chebyshev)
+and an inner KSP (-fieldsplit_inner_ksp_type) raise NotImplementedError
+naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
@@ -27,6 +31,9 @@ import dataclasses
 import sys
 from typing import Any, Optional
 
+import torch
+
+from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator
 from saddle_point_petsc_tpu_torch.solvers import krylov, precond
 from saddle_point_petsc_tpu_torch.solvers.amg import amg_pc
 from saddle_point_petsc_tpu_torch.solvers.operators import SaddleOperator
@@ -176,10 +183,37 @@ class KSP:
             )
         return "\n".join(lines)
 
-    def mat_solve(self, B, x0=None):
-        raise NotImplementedError(
-            "KSPMatSolve (pseudo-block CG over the stencil SpMM kernel B2) "
-            "is ROADMAP.md A.12"
+    def mat_solve(self, B, x0=None) -> krylov.KrylovResult:
+        """Solve A X = B for a batch of right-hand sides on a leading k axis
+        (PETSc KSPMatSolve): the pseudo-block CG, `krylov.cg_multi`.
+
+        B is (k, 2, ny, nx) for a stencil operator, whose batched product
+        is `matmat_field` (kernel B2 on a CUDA device), and (k, n) for
+        the others, whose batched product is `A.matmat` on the transposed
+        view of the batch, without a copy (kernel B6 for a CUDA DIA). The
+        elementwise PCs (none, jacobi) scale the whole batch at once, with
+        each column's bits; the others (gamg) apply column by column."""
+        if self.ksp_type != "cg":
+            raise ValueError(
+                "mat_solve implements the pseudo-block CG (KSPMatSolve) only; "
+                f"got ksp_type={self.ksp_type}"
+            )
+        if self.M is None:
+            self.set_up()
+        A, M = self.A, self.M
+        if isinstance(A, StencilOperator):
+            Ab = A.matmat_field
+        else:
+            def Ab(X):
+                return A.matmat(X.T).T
+        if isinstance(M, (precond.IdentityPC, precond.JacobiPC)):
+            Mb = M
+        else:
+            def Mb(R):
+                return torch.stack([M(r) for r in R])
+        return krylov.cg_multi(
+            Ab, B, M=Mb, x0=x0, rtol=self.rtol, atol=self.atol, dtol=self.dtol,
+            maxiter=self.max_it,
         )
 
     def solve(self, b, x0=None) -> krylov.KrylovResult:

@@ -1,4 +1,4 @@
-"""Kernels B1, B3/B3' and B4 and the port's routes on a CUDA device.
+"""Kernels B1-B6 and the port's routes on a CUDA device.
 
 These tests need a card and skip without one. They import neither jax nor
 the JAX package, so a machine with CUDA torch and no jax runs them with
@@ -11,8 +11,10 @@ plain version to 1e-5 * max|y| in f32 and 1e-12 * max|y| in f64 (the same
 CLI on the card against the CLI on the CPU, both f64, to the same
 iteration count +-2 and u to 1e-6 relative (the kernel's rounding differs
 from the CPU's, and MINRES plateaus amplify it, see test_torch_saddle.py).
-B3 and B4 round every product and sum as their plain versions do, in the
-same order, and are held to the same bounds as B1 (they give equal bits).
+B3, B4, B5 and B6 round every product and sum as their plain versions
+do, in the same order, and B2 sums as B1 does; all are held to the same
+bounds as B1. KSPMatSolve on the card against the CPU: iterations +-1
+(batched dot products reduce in another order on the card), x to 1e-9.
 """
 import random
 
@@ -22,8 +24,11 @@ import torch
 from saddle_point_petsc_tpu_torch import cli
 from saddle_point_petsc_tpu_torch.models import poisson
 from saddle_point_petsc_tpu_torch.ops import sparse
-from saddle_point_petsc_tpu_torch.ops.cuda import bdia, dia, spmv
+from saddle_point_petsc_tpu_torch.ops.cuda import bdia, dia, dia_spmm, ell, spmm, spmv
 from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator
+from saddle_point_petsc_tpu_torch.solvers import amg
+from saddle_point_petsc_tpu_torch.solvers.ksp import KSP
+from saddle_point_petsc_tpu_torch.utils.options import Options
 
 pytestmark = pytest.mark.gpu
 
@@ -151,3 +156,127 @@ def test_cli_gamg_on_card_matches_cpu(dev):
     assert abs(card.result.iterations - host.result.iterations) <= 1
     x_card, x_host = card.result.x.cpu(), host.result.x
     assert (x_card - x_host).norm() <= 1e-6 * x_host.norm()
+
+
+def _within(got, ref, tol):
+    return (got - ref).abs().max().item() <= tol * max(ref.abs().max().item(), 1e-300)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_spmm_kernel_matches_plain(dev, dtype, tol):
+    """B2 against its plain version, and each field against B1 on it alone."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    for nx, ny in ((1, 1), (4, 4), (7, 5), (33, 17), (130, 67)):
+        planes = torch.randn((4, 3, 3, ny, nx), generator=gen, dtype=dtype, device=dev)
+        for k in (1, 3, 8):
+            XT = torch.randn((k, 2, ny, nx), generator=gen, dtype=dtype, device=dev)
+            spmm.reset_launches()
+            Y = spmm.stencil_spmm(planes, XT)
+            assert spmm.launches == 1
+            torch.cuda.synchronize()
+            assert _within(Y, spmm.planes_matmat_field(planes, XT), tol)
+            for j in range(k):
+                assert _within(Y[j], spmv.stencil_spmv(planes, XT[j]), tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_ell_kernel_matches_plain(dev, dtype, tol):
+    """B5 on random slot-major ELL with padding slots, rows not a multiple
+    of 32 and widths 1 to 64."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    for m, width in ((1, 1), (37, 7), (1000, 64), (1000, 1)):
+        cols_t = torch.randint(0, m, (width, m), generator=gen, device=dev, dtype=torch.int32)
+        pad = torch.rand((width, m), generator=gen, device=dev) < 0.3
+        cols_t = torch.where(pad, -1, cols_t).to(torch.int32)
+        vals_t = torch.randn((width, m), generator=gen, dtype=dtype, device=dev)
+        x = torch.randn((m,), generator=gen, dtype=dtype, device=dev)
+        ell.reset_launches()
+        y = ell.ell_spmv(cols_t, vals_t, x)
+        assert ell.launches == 1
+        torch.cuda.synchronize()
+        assert _within(y, ell.ell_spmv_plain(cols_t, vals_t, x), tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_dia_spmm_kernel_matches_plain(dev, dtype, tol):
+    """B6 with X row-major and as the transpose of a (k, n) batch, k up to
+    past one register chunk, an offset beyond the rows; each column against
+    B3 on it."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    for n, offs in ((1, (0,)), (37, (-37, -1, 0, 1, 37)), (1000, (-300, -17, -1, 0, 3, 129, 255))):
+        data = torch.randn((len(offs), n), generator=gen, dtype=dtype, device=dev)
+        for k in (1, 4, 9):
+            rows = torch.randn((n, k), generator=gen, dtype=dtype, device=dev)
+            for X in (rows, rows.T.contiguous().T):
+                dia_spmm.reset_launches()
+                Y = dia_spmm.dia_spmm(data, X, offs)
+                assert dia_spmm.launches == 1 and (k == 1 or Y.stride() == X.stride())
+                torch.cuda.synchronize()
+                assert _within(Y, dia_spmm.dia_spmm_plain(data, X, offs), tol)
+                for j in range(k):
+                    assert _within(Y[:, j], dia.dia_spmv_2d(data, X[:, j].contiguous(), offs), tol)
+
+
+def test_new_wrappers_reject_mixed_devices(dev):
+    f64 = torch.float64
+    with pytest.raises(ValueError):
+        spmm.stencil_spmm(torch.zeros((4, 3, 3, 5, 6), dtype=f64),
+                          torch.zeros((2, 2, 5, 6), dtype=f64, device=dev))
+    with pytest.raises(ValueError):
+        ell.ell_spmv(torch.zeros((2, 5), dtype=torch.int32), torch.zeros((2, 5), dtype=f64),
+                     torch.zeros((5,), dtype=f64, device=dev))
+    with pytest.raises(ValueError):
+        dia_spmm.dia_spmm(torch.zeros((1, 5), dtype=f64), torch.zeros((5, 2), dtype=f64, device=dev), (0,))
+
+
+def _mat_solve(A, B, argv):
+    ksp = KSP(Options(["-ksp_type", "cg", "-ksp_rtol", "1e-8"] + argv))
+    ksp.set_operators(A).set_from_options()
+    return ksp, ksp.mat_solve(B)
+
+
+@pytest.mark.parametrize("fmt", ["stencil", "dia"])
+def test_mat_solve_on_card_launches_kernels(dev, fmt):
+    """KSPMatSolve on a CUDA stencil launches B2, on a CUDA DIA B6, once
+    per iteration at least, and matches the same solve on the CPU."""
+    if fmt == "stencil":
+        prob = poisson.assemble_poisson(24, 24, dtype=torch.float64, device=dev)
+        A, f, counter = prob.A, prob.f, spmm
+    else:
+        csr, f, _, _ = poisson.assemble_poisson_csr(24, 24, device=dev)
+        A, counter = sparse.csr_to_dia(csr)[0], dia_spmm
+    B = torch.stack([f, 2.0 * f, f * f])
+    counter.reset_launches()
+    _, card = _mat_solve(A, B, ["-pc_type", "jacobi"])
+    launches = counter.launches
+    A_cpu = (StencilOperator(A.planes.cpu()) if fmt == "stencil"
+             else sparse.DIA(A.data.cpu(), A.offsets, A.shape))
+    _, host = _mat_solve(A_cpu, B.cpu(), ["-pc_type", "jacobi"])
+    assert card.converged_reason.tolist() == host.converged_reason.tolist() == [2, 2, 2]
+    assert launches >= card.iterations
+    assert abs(card.iterations - host.iterations) <= 1
+    assert (card.x.cpu() - host.x).norm() <= 1e-9 * host.x.norm()
+
+
+def test_gamg_on_card_launches_ell_kernel(dev):
+    """gamg on 49 x 49 nodes with a coarse limit of 50 has four ELL levels:
+    on the card each of their matvecs launches B5, and KSPMatSolve
+    launches B6 and B3 as well."""
+    csr, f, _, _ = poisson.assemble_poisson_csr(48, 48, device=dev)
+    A = sparse.csr_to_dia(csr)[0]
+    B = torch.stack([f, 2.0 * f, f * f])
+    for mod in (ell, dia, dia_spmm):
+        mod.reset_launches()
+    ksp, res = _mat_solve(A, B, ["-pc_type", "gamg", "-pc_gamg_coarse_eq_limit", "50"])
+    assert sum(isinstance(lvl.A, amg._EllOp) for lvl in ksp.M.levels) == 4
+    assert ell.launches > 0 and dia.launches > 0 and dia_spmm.launches >= res.iterations
+    assert res.converged_reason.tolist() == [2, 2, 2] and abs(res.iterations - 8) <= 1
+    ell_lvl = next(lvl.A for lvl in ksp.M.levels if isinstance(lvl.A, amg._EllOp))
+    x = torch.randn((ell_lvl.ell.shape[1],), dtype=torch.float64, device=dev)
+    ell.reset_launches()
+    y = ell_lvl(x)
+    assert ell.launches == 1
+    assert _within(y, ell.ell_spmv_plain(ell_lvl.ell.cols_t, ell_lvl.ell.vals_t, x), 1e-12)
