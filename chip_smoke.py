@@ -14,7 +14,7 @@ Phases (each passes or raises; the script exits non-zero on any failure):
    both entry points, node grids 4x4 to 1025x1025 (the main path's among
    them) with planes from assemble_poisson(body_force="trig") and random
    planes; then both timed at 1025^2 with CUDA events (median of 60
-   launches).
+   launches) beside the library call A_csr @ x (below).
 4. Main path, f64, 257^2 nodes: the CLI's saddle route to rtol 1e-8,
    counting B1 launches; true residual in f64; the same solve with the
    plain matvec in place of the kernel.
@@ -25,7 +25,7 @@ Phases (each passes or raises; the script exits non-zero on any failure):
    bsr_to_bdia(csr_to_bsr) at 4x4 to 1025x1025 nodes, random bands with
    offsets such as (-300, -17, -1, 0, 3, 129, 255) and rows not a multiple
    of 32, random block bands with random active triples for b = 1, 2, 3;
-   then each timed at 1025^2 (plain, kernel, kernel, plain).
+   then each timed at 1025^2 beside its library call.
 7. Formats agree, 257^2 f64, CG + Jacobi to rtol 1e-8 through the CLI:
    -mat_type aij, dia and bdia and the stencil route; iteration counts,
    solutions and VTK output.
@@ -43,11 +43,16 @@ Phases (each passes or raises; the script exits non-zero on any failure):
     for k = 1, 3, 8 fields on grids 4x4 to 1025x1025 with assembled and
     random planes, each field also against B1 on it; B5 on every ELL level
     of phase 8's hierarchy and on random ELL (widths 1-64, padding slots,
-    n = 1000 and 100003); B6 on phase 8's 1025^2 DIA operator and random
-    bands for k = 1, 4, 8, X row-major and the transpose of a (k, n)
-    batch, each column also against B3. Then each timed at 1025^2 (B2 and
-    B6 at k = 8, B5 on level 1 of the hierarchy), and B5 against B3 on
-    level 0 stored both ways.
+    n = 1000 and 100003); B6 on phase 8's 1025^2 DIA operator and on
+    random bands (offsets unsorted, gaps wider than a tile's rows,
+    offsets beyond the rows; n = 1, 31, 1000, 100003) for k = 1, 4, 8, 9,
+    16, 17, X row-major and the transpose of a (k, n) batch, bit-equal to
+    its plain version and to B3 column by column through the path the
+    wrapper picks, and to its plain version through each of its paths
+    (strided, rows, blocked) that applies. Then each timed at 1025^2
+    beside its library call (B2 and B6 at k = 8, B6 in both layouts, B5 on
+    level 1 of the hierarchy), and B5 against B3 on level 0 stored both
+    ways.
 12. KSPMatSolve on the stencil, counting B2 launches: 1025^2 f32, k = 8
     right-hand sides f (1 + 0.1 i), CG + Jacobi to rtol 1e-5, per-column
     true residuals; 257^2 f64, k = 4, rtol 1e-8, each column against a
@@ -55,6 +60,20 @@ Phases (each passes or raises; the script exits non-zero on any failure):
 13. KSPMatSolve on phase 8's 1025^2 DIA operator, f64, k = 4, CG + gamg
     to rtol 1e-10, counting B6, B3 and B5 launches; per-column true
     residuals.
+14. KSPMatSolve on phase 8's 1025^2 DIA operator in f32, k = 8, CG +
+    Jacobi to rtol 1e-5: B6 once per iteration; ms per iteration, B6's
+    share of the solve, true residuals against a single-right-hand-side
+    CG of column 0.
+
+Each kernel's timing runs in the order plain, kernel, library, library,
+kernel, plain (medians of 60 launches each) and prints the kernel's
+bound: the larger of its bytes (each input read once, each output written
+once) over 3.35 TB/s and its operations over the type's peak rate. The
+library call is the one PyTorch call computing the same function:
+`A_csr @ x` (`@ X`, row-major, for B2 and B6) with A_csr a
+torch.sparse_csr_tensor with int32 indices of the same matrix; it is
+checked once against the kernel (up to rounding, after reordering) and
+never called by the port.
 
 The last lines are the kernels JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}.
@@ -71,6 +90,8 @@ import sys
 import tempfile
 import time
 
+import numpy as np
+import scipy.sparse as sps
 import torch
 
 from saddle_point_petsc_tpu_torch import cli
@@ -87,6 +108,7 @@ from saddle_point_petsc_tpu_torch.utils.options import Options
 GRIDS = ((4, 4), (7, 5), (33, 17), (257, 129), (256, 256), (257, 257), (1025, 1025))
 # node grids of the assembled DIA and block-DIA operators checked in phase 6
 SPARSE_GRIDS = ((4, 4), (7, 5), (33, 17), (257, 257), (1025, 1025))
+N_TIMED = 1025  # node grid side at which the kernels are timed (phases 3, 6, 11)
 # B1 and B2: the kernel and its plain version sum the same 36 products in
 # the same order; only FMA contraction differs, so they agree to a few ulps
 # of max|y|. B3, B4, B5 and B6 round each product and sum as the plain
@@ -95,6 +117,20 @@ TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # kernel modules and their launch counters, by kernel name
 COUNTERS = {"B1": spmv, "B2": spmm, "B3": dia, "B4": bdia, "B5": ell, "B6": dia_spmm}
 BENCH_R04_KKT_ITERATIONS = 452  # BENCH_r04.json kkt_iterations (256^2, f32, rtol 1e-5)
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# HBM3 bandwidth, and the arithmetic rate outside the tensor cores of the
+# type a kernel computes in. A kernel's bound is the larger of its bytes
+# (each input read once, each output written once) over the first and its
+# operations over the second.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# B6 cases of phase 11 beside the 1025^2 operator: offsets unsorted, with
+# gaps wider than a tile's rows and beyond the rows, as (offsets, row counts)
+B6_OFFSETS = (
+    ((-300, -17, -1, 0, 3, 129, 255), (1, 31, 1000, 100003)),
+    ((3, -5000, 0, 5000, 1, -64, 64, -2, 2, -3), (31, 100003)),
+)
+B6_COLUMNS = (1, 4, 8, 9, 16, 17)
 
 
 def _card_line():
@@ -123,6 +159,49 @@ def _median_ms(fn, n=60, warmup=5):
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def _bound(nbytes, flops, dtype):
+    """(bound ms, "bytes" or "operations"): the least time the card could
+    take to move nbytes and do flops."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _library_csr(a, dtype, dev):
+    """The yardstick of a kernel: scipy matrix `a` as a torch.sparse_csr_tensor
+    with int32 indices on the card, explicit zeros dropped, for the one
+    PyTorch call `A_csr @ x` (or `@ X`) that computes the kernel's function.
+    Timed here only; the port never calls it."""
+    a = a.tocsr()
+    a.eliminate_zeros()
+    a.sort_indices()
+    return torch.sparse_csr_tensor(
+        torch.tensor(a.indptr, dtype=torch.int32, device=dev),
+        torch.tensor(a.indices, dtype=torch.int32, device=dev),
+        torch.tensor(a.data, dtype=dtype, device=dev),
+        a.shape,
+    )
+
+
+def _timed(name, label, card, dtype, nbytes, flops, plain, kernel, library):
+    """Median device times in the order plain, kernel, library, library,
+    kernel, plain; prints them beside the bound and returns the row's
+    numbers, each time the better of its two medians."""
+    ts = [_median_ms(f) for f in (plain, kernel, library, library, kernel, plain)]
+    out = {"ms": min(ts[1], ts[4]), "plain_ms": min(ts[0], ts[5]), "library_ms": min(ts[2], ts[3])}
+    out["bound_ms"], out["bound_by"] = _bound(nbytes, flops, dtype)
+    for what in ("ms", "plain_ms", "library_ms"):
+        t = out[what]
+        print(f"{name:<3} time {label} {what[:-3] or 'kernel':<7} {t * 1e3:9.2f} us "
+              f"{nbytes / t / 1e6:8.1f} GB/s  ({card})")
+    print(
+        f"  bound {out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}: {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.3f} GFLOP); kernel at {out['bound_ms'] / out['ms']:.2f} of it, "
+        f"library/kernel {out['library_ms'] / out['ms']:.2f}; medians of 60 in turn (plain, "
+        f"kernel, library, library, kernel, plain): {' '.join(f'{t * 1e3:.2f}' for t in ts)} us"
+    )
+    return out
 
 
 def phase_kernel(dev, card):
@@ -161,29 +240,20 @@ def phase_kernel(dev, card):
                 max_err = max(max_err, err)
 
     timings = {}
-    nx = ny = 1025
+    nx = ny = N_TIMED
     for dtype in (torch.float32, torch.float64):
-        planes = poisson.assemble_poisson(
-            nx - 1, ny - 1, dtype=dtype, device=dev, body_force="trig"
-        ).A.planes
+        A = poisson.assemble_poisson(nx - 1, ny - 1, dtype=dtype, device=dev, body_force="trig").A
+        planes = A.planes
         x = torch.randn((2, ny, nx), generator=gen, dtype=dtype, device=dev)
-        t_plain1 = _median_ms(lambda: spmv.planes_matvec_field(planes, x))
-        t_kern1 = _median_ms(lambda: spmv.stencil_spmv(planes, x))
-        t_kern2 = _median_ms(lambda: spmv.stencil_spmv(planes, x))
-        t_plain2 = _median_ms(lambda: spmv.planes_matvec_field(planes, x))
-        nbytes = 40 * planes.element_size() * ny * nx
-        nnz = 36 * ny * nx
-        t_kern, t_plain = min(t_kern1, t_kern2), min(t_plain1, t_plain2)
-        for name, t in (("kernel", t_kern), ("plain", t_plain)):
-            print(
-                f"B1 time {str(dtype)[6:]:<8} {nx}x{ny} {name:<6} {t * 1e3:9.2f} us "
-                f"{nbytes / t / 1e6:8.1f} GB/s {nnz / t / 1e6:7.2f} Gnnz/s  ({card})"
-            )
-        print(
-            f"  medians of 60 in turn (plain, kernel, kernel, plain): {t_plain1 * 1e3:.2f} "
-            f"{t_kern1 * 1e3:.2f} {t_kern2 * 1e3:.2f} {t_plain2 * 1e3:.2f} us"
-        )
-        timings[dtype] = (t_kern, t_plain)
+        # the library call takes the natural interleaved ordering (field_to_flat)
+        A_csr, x_flat = _library_csr(amg._to_scipy(A), dtype, dev), field_to_flat(x).contiguous()
+        _compare("B1 library call against the kernel", A_csr @ x_flat,
+                 field_to_flat(spmv.stencil_spmv(planes, x)), dtype)
+        timings[dtype] = _timed(
+            "B1", f"{str(dtype)[6:]:<8} {nx}x{ny}", card, dtype, 40 * planes.element_size() * ny * nx,
+            72 * ny * nx, lambda: spmv.planes_matvec_field(planes, x), lambda: spmv.stencil_spmv(planes, x),
+            lambda: A_csr @ x_flat)
+        del A_csr
     return max_err, timings
 
 
@@ -309,20 +379,6 @@ def _check_bdia(label, data, xb, offsets, active, dtype):
     return _compare(f"B4  {label:<36}", bdia.bdia_spmv_2d(data, xb, offsets, active), ref, dtype)
 
 
-def _timed_pair(name, plain, kernel, label, nbytes, card):
-    """Median device times in the order plain, kernel, kernel, plain; prints
-    both and returns (kernel ms, plain ms), each the better median."""
-    tp1, tk1, tk2, tp2 = (_median_ms(f) for f in (plain, kernel, kernel, plain))
-    tk, tp = min(tk1, tk2), min(tp1, tp2)
-    for what, t in (("kernel", tk), ("plain", tp)):
-        print(f"{name:<3} time {label} {what:<6} {t * 1e3:9.2f} us {nbytes / t / 1e6:8.1f} GB/s  ({card})")
-    print(
-        f"  medians of 60 in turn (plain, kernel, kernel, plain): {tp1 * 1e3:.2f} "
-        f"{tk1 * 1e3:.2f} {tk2 * 1e3:.2f} {tp2 * 1e3:.2f} us; {nbytes / 1e6:.1f} MB per call"
-    )
-    return tk, tp
-
-
 def phase_sparse_kernels(dev, card):
     """Phase 6: B3, B3' and B4 against their plain versions, then timed."""
     gen = torch.Generator(device=dev)
@@ -348,7 +404,7 @@ def phase_sparse_kernels(dev, card):
             xb = x.reshape(-1, 2).T.contiguous()
             err["B4"] = max(err["B4"], _check_bdia(
                 f"{nx}x{ny} assembled", bdata, xb, B.offsets, B.active, dtype))
-        if (nx, ny) == (1025, 1025):
+        if (nx, ny) == SPARSE_GRIDS[-1]:
             big = A, B
     for dtype in (torch.float32, torch.float64):
         offs = (-300, -17, -1, 0, 3, 129, 255)
@@ -367,25 +423,31 @@ def phase_sparse_kernels(dev, card):
                     f"random b={b} mb={mb} |active|={len(active)}", data, xb, boffs, active, dtype))
 
     A, B = big
+    csr_a, csr_b = sparse.to_scipy(A), sparse.to_scipy(B)  # the same matrix twice, f64
     timings = {}
     for dtype in (torch.float32, torch.float64):
         data, bdata = A.data.to(dtype), B.data.to(dtype)
-        n = A.shape[0]
+        n, nd = A.shape[0], len(A.offsets)
         x = torch.randn((n,), generator=gen, dtype=dtype, device=dev)
-        xb = x.reshape(-1, 2).T.contiguous()
-        mb = xb.shape[1]
+        xb = x.reshape(-1, 2).T.contiguous()  # block-DIA's dof-major layout of x
+        mb, na = xb.shape[1], len(B.active)
         es = x.element_size()
-        for name, plain, kernel, nbytes in (
+        lib_a, lib_b = _library_csr(csr_a, dtype, dev), _library_csr(csr_b, dtype, dev)
+        _compare("B3 library call against the kernel", lib_a @ x, dia.dia_spmv_2d(data, x, A.offsets), dtype)
+        _compare("B4 library call against the kernel", lib_b @ x,
+                 bdia.bdia_spmv_2d(bdata, xb, B.offsets, B.active).T.reshape(-1), dtype)
+        for name, plain, kernel, library, nbytes, flops in (
             ("B3", lambda: dia.dia_spmv_plain(data, x, A.offsets),
-             lambda: dia.dia_spmv_2d(data, x, A.offsets), (len(A.offsets) + 2) * n * es),
+             lambda: dia.dia_spmv_2d(data, x, A.offsets), lambda: lib_a @ x, (nd + 2) * n * es, 2 * nd * n),
             ("B3'", lambda: dia.dia_spmv_plain(data, x, A.offsets),
-             lambda: dia.dia_spmv(data, x, A.offsets), (len(A.offsets) + 2) * n * es),
+             lambda: dia.dia_spmv(data, x, A.offsets), lambda: lib_a @ x, (nd + 2) * n * es, 2 * nd * n),
             ("B4", lambda: bdia.bdia_spmv_plain(bdata, xb, B.offsets, B.active),
-             lambda: bdia.bdia_spmv_2d(bdata, xb, B.offsets, B.active),
-             (len(B.active) + 4) * mb * es),
+             lambda: bdia.bdia_spmv_2d(bdata, xb, B.offsets, B.active), lambda: lib_b @ x,
+             (na + 4) * mb * es, 2 * na * mb),
         ):
-            timings[name, dtype] = _timed_pair(
-                name, plain, kernel, f"{str(dtype)[6:]:<8} 1025x1025", nbytes, card)
+            timings[name, dtype] = _timed(name, f"{str(dtype)[6:]:<8} {n} rows", card, dtype, nbytes,
+                                          flops, plain, kernel, library)
+        del lib_a, lib_b
     return err, timings
 
 
@@ -560,6 +622,30 @@ def phase_saddle_gamg():
         raise AssertionError(f"true residual {true_rel} > 1e-6")
 
 
+def _field_rows(XT):
+    """(k, 2, ny, nx) fields -> the row-major (n, k) X whose column j is
+    field_to_flat(XT[j]) (the natural interleaved ordering)."""
+    return XT.permute(2, 3, 1, 0).reshape(-1, XT.shape[0]).contiguous()
+
+
+def _ell_scipy(E):
+    """A slot-major ELL (cols_t, vals_t) as a scipy csr_matrix, padding dropped."""
+    cols, vals = E.cols_t.cpu().numpy(), E.vals_t.double().cpu().numpy()
+    rows = np.broadcast_to(np.arange(cols.shape[1]), cols.shape)
+    keep = cols >= 0
+    return sps.csr_matrix((vals[keep], (rows[keep], cols[keep])), shape=E.shape)
+
+
+def _b6_paths(data, X, offsets):
+    """The paths of kernel B6 that apply to X and the offsets."""
+    paths = ["strided"]
+    if dia_spmm._rows_aligned(X, X):
+        paths.append("rows")
+    if X.stride(0) == 1 and dia_spmm._plan(tuple(offsets), X.shape[0]) is not None:
+        paths.append("blocked")
+    return paths
+
+
 def phase_spmm_kernels(dev, card, gamg_run):
     """Phase 11: B2, B5 and B6 against their plain versions, then timed."""
     gen = torch.Generator(device=dev)
@@ -604,61 +690,82 @@ def phase_spmm_kernels(dev, card, gamg_run):
                 x = torch.randn((n,), generator=gen, dtype=dtype, device=dev)
                 err["B5"] = max(err["B5"], _check_ell(f"random n={n} K={width}", cols_t, vals_t, x, dtype))
 
-    offs = (-300, -17, -1, 0, 3, 129, 255)
-    b6_vs_b3 = 0.0
+    b6_vs_b3, b6_cases = 0.0, 0
     for dtype in (torch.float32, torch.float64):
-        cases = [("1025x1025 assembled", A.data.to(dtype), A.offsets)]
-        for n in (1000, 100003):
-            cases.append((f"random n={n}",
-                          torch.randn((len(offs), n), generator=gen, dtype=dtype, device=dev), offs))
+        cases = [(f"{A.shape[0]} rows assembled", A.data.to(dtype), A.offsets)]
+        for o, ns in B6_OFFSETS:
+            cases += [(f"{len(o)} random bands n={n}",
+                       torch.randn((len(o), n), generator=gen, dtype=dtype, device=dev), o) for n in ns]
         for label, data, o in cases:
             n = data.shape[1]
-            for k in (1, 4, 8):
+            for k in B6_COLUMNS:
                 rows = torch.randn((n, k), generator=gen, dtype=dtype, device=dev)
                 for layout, X in (("rows", rows), ("(k,n).T", rows.T.contiguous().T)):
                     Y = dia_spmm.dia_spmm(data, X, o)
                     lab = f"{label} k={k} {layout}"
-                    err["B6"] = max(err["B6"], _compare(
-                        f"B6  {lab:<36}", Y, dia_spmm.dia_spmm_plain(data, X, o), dtype))
+                    want = dia_spmm.dia_spmm_plain(data, X, o)
+                    err["B6"] = max(err["B6"], _compare(f"B6  {lab:<36}", Y, want, dtype))
+                    b6_cases += 1
+                    for path in _b6_paths(data, X, o):  # each of the kernel's paths that applies
+                        err["B6"] = max(err["B6"], _compare(
+                            f"B6 {path} path {lab}", dia_spmm._launch(data, X, o, path=path), want, dtype,
+                            quiet=True))
+                        b6_cases += 1
                     for j in range(k):
                         b6_vs_b3 = max(b6_vs_b3, _compare(
                             f"B6/B3 {lab} col {j}", Y[:, j], dia.dia_spmv_2d(data, X[:, j].contiguous(), o),
                             dtype, quiet=True))
-    print(f"B6 against B3 column by column: max|dy| = {b6_vs_b3:.3e} "
-          f"({'bit-equal' if b6_vs_b3 == 0 else 'not bit-equal'})")
+    print(f"B6 against its plain version in {b6_cases} cases: max|dy| = {err['B6']:.3e}; against B3 "
+          f"column by column: max|dy| = {b6_vs_b3:.3e} ({'bit-equal' if b6_vs_b3 == 0 else 'not bit-equal'})")
+    if err["B6"] != 0 or b6_vs_b3 != 0:
+        raise AssertionError("B6 is not bit-equal to its plain version and to B3")
 
     timings = {}
-    nx = ny = 1025
+    nx = ny = N_TIMED
     k = 8
+    csr6, E = sparse.to_scipy(A), M.levels[1].A.ell
+    csr5 = _ell_scipy(E)
     for dtype in (torch.float32, torch.float64):
         es = torch.finfo(dtype).bits // 8
         dn = str(dtype)[6:]
-        planes = poisson.assemble_poisson(nx - 1, ny - 1, dtype=dtype, device=dev, body_force="trig").A.planes
+        st = poisson.assemble_poisson(nx - 1, ny - 1, dtype=dtype, device=dev, body_force="trig").A
+        planes = st.planes
         XT = torch.randn((k, 2, *planes.shape[-2:]), generator=gen, dtype=dtype, device=dev)
-        timings["B2", dtype] = _timed_pair(
-            "B2", lambda: spmm.planes_matmat_field(planes, XT), lambda: spmm.stencil_spmm(planes, XT),
-            f"{dn:<8} 1025x1025 k={k}", (36 + 4 * k) * ny * nx * es, card)
+        # the library call takes the k fields as columns of a row-major (n, k) X
+        lib2, X2 = _library_csr(amg._to_scipy(st), dtype, dev), _field_rows(XT)
+        _compare("B2 library call against the kernel", lib2 @ X2, _field_rows(spmm.stencil_spmm(planes, XT)), dtype)
+        timings["B2", dtype] = _timed(
+            "B2", f"{dn:<8} {nx}x{ny} k={k}", card, dtype, (36 + 4 * k) * ny * nx * es, 72 * k * ny * nx,
+            lambda: spmm.planes_matmat_field(planes, XT), lambda: spmm.stencil_spmm(planes, XT),
+            lambda: lib2 @ X2)
+        del lib2, X2
         t_b1 = _median_ms(lambda: [spmv.stencil_spmv(planes, XT[j]) for j in range(k)])
         print(f"B1 x {k} (one field at a time), {dn}: {t_b1 * 1e3:.2f} us  ({card})")
 
         data = A.data.to(dtype)
-        n = data.shape[1]
+        n, nd = data.shape[1], len(A.offsets)
         Xb = torch.randn((k, n), generator=gen, dtype=dtype, device=dev)
-        nb = (len(A.offsets) + 2 * k) * n * es
-        timings["B6", dtype] = _timed_pair(
-            "B6", lambda: dia_spmm.dia_spmm_plain(data, Xb.T, A.offsets),
-            lambda: dia_spmm.dia_spmm(data, Xb.T, A.offsets), f"{dn:<8} 1025x1025 k={k} (k,n).T", nb, card)
         Xr = Xb.T.contiguous()
-        _timed_pair("B6", lambda: dia_spmm.dia_spmm_plain(data, Xr, A.offsets),
-                    lambda: dia_spmm.dia_spmm(data, Xr, A.offsets), f"{dn:<8} 1025x1025 k={k} rows", nb, card)
+        lib6 = _library_csr(csr6, dtype, dev)
+        _compare("B6 library call against the kernel", lib6 @ Xr, dia_spmm.dia_spmm(data, Xb.T, A.offsets), dtype)
+        for key, X, layout in (("B6", Xb.T, "(k,n).T"), ("B6 rows", Xr, "rows")):
+            timings[key, dtype] = _timed(
+                "B6", f"{dn:<8} {n} rows k={k} {layout}", card, dtype, (nd + 2 * k) * n * es,
+                2 * nd * n * k, lambda: dia_spmm.dia_spmm_plain(data, X, A.offsets),
+                lambda: dia_spmm.dia_spmm(data, X, A.offsets), lambda: lib6 @ Xr)
+        del lib6
 
-        E = M.levels[1].A.ell
         cols_t, vals_t = E.cols_t, E.vals_t.to(dtype)
         K, m = cols_t.shape
         x = torch.randn((E.shape[1],), generator=gen, dtype=dtype, device=dev)
-        timings["B5", dtype] = _timed_pair(
-            "B5", lambda: ell.ell_spmv_plain(cols_t, vals_t, x), lambda: ell.ell_spmv(cols_t, vals_t, x),
-            f"{dn:<8} gamg level 1 ({m} rows, K={K})", K * m * (4 + es) + (E.shape[1] + m) * es, card)
+        lib5 = _library_csr(csr5, dtype, dev)
+        _compare("B5 library call against the kernel", lib5 @ x, ell.ell_spmv(cols_t, vals_t, x), dtype)
+        timings["B5", dtype] = _timed(
+            "B5", f"{dn:<8} gamg level 1 ({m} rows, K={K})", card, dtype,
+            K * m * (4 + es) + (E.shape[1] + m) * es, 2 * K * m,
+            lambda: ell.ell_spmv_plain(cols_t, vals_t, x), lambda: ell.ell_spmv(cols_t, vals_t, x),
+            lambda: lib5 @ x)
+        del lib5
 
     # ROADMAP A.25: level 0 of the hierarchy stored as DIA (B3) and as ELL (B5)
     L0 = M.levels[0].A
@@ -792,6 +899,34 @@ def phase_mat_solve_dia(dev, gamg_run):
     return counts["B6"]
 
 
+def phase_mat_solve_dia_f32(dev, gamg_run, b6_ms):
+    """Phase 14: KSPMatSolve on phase 8's 1025^2 DIA operator in f32, k = 8,
+    CG + Jacobi: B6 once per iteration, thousands of times."""
+    A64, f = gamg_run.problem.A, gamg_run.problem.f.float()
+    A = sparse.DIA(A64.data.float(), A64.offsets, A64.shape)
+    k = 8
+    B = torch.stack([f * (1.0 + 0.1 * i) for i in range(k)])
+    ksp, res, _, t, counts = _mat_solve(A, B, ["-pc_type", "jacobi", "-ksp_rtol", "1e-5"])
+    its = res.iterations
+    if not its <= counts["B6"] <= its + 2:  # one per iteration and one for the first residual
+        raise AssertionError(f"B6 launched {counts['B6']} times for {its} iterations")
+    plain64 = lambda X: dia_spmm.dia_spmm_plain(A64.data, X.T, A64.offsets).T  # noqa: E731
+    rel = _true_residuals(plain64, res.x.double(), B)
+    # as in phase 12, an f32 solution has a residual floor at this size: the
+    # yardstick is a single-right-hand-side f32 CG (kernel B3) of column 0
+    single = krylov.cg(A, B[0], M=ksp.M, rtol=1e-5, maxiter=10000)
+    rel_s = _true_residuals(plain64, single.x[None].double(), B[:1])[0]
+    share = counts["B6"] * b6_ms * 1e-3 / t
+    print(f"1025^2 DIA f32 k={k} CG+Jacobi: {its} its, solve {t:.4f} s, {t / its * 1e3:.4f} ms/it, "
+          f"B6 {counts['B6']} launches x {b6_ms * 1e3:.2f} us (phase 11) = {share:.1%} of the solve; "
+          f"per-column iterations {_column_its(res, 1e-5)}, true residuals (f64) "
+          f"{', '.join(f'{r:.3e}' for r in rel)}; single-RHS CG of column 0: {single.iterations} its, "
+          f"true residual {rel_s:.3e}")
+    if not max(rel) <= 2.0 * rel_s:
+        raise AssertionError(f"true residuals {rel}, single-RHS {rel_s}")
+    return counts["B6"]
+
+
 def main():
     t_start = time.perf_counter()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -822,15 +957,15 @@ def main():
         phase_saddle_gamg()
         spmm_err, spmm_timings = phase_spmm_kernels(dev, card, gamg_run)
         b2_launches = phase_mat_solve_stencil(dev)
-        b6_launches = phase_mat_solve_dia(dev, gamg_run)
+        phase_mat_solve_dia(dev, gamg_run)
+        b6_launches = phase_mat_solve_dia_f32(dev, gamg_run, spmm_timings["B6", torch.float32]["ms"])
 
-    def row(name, source, replaces, launches, err, key):
-        k, p = key
+    def row(name, source, replaces, launches, err, numbers):
         return {
             "name": name, "route": "cuda",
             "source": f"saddle_point_petsc_tpu_torch/csrc/{source}",
             "replaces": f"saddle_point_petsc_tpu/ops/pallas/{replaces}",
-            "launches": launches, "max_abs_err": err, "ms": k, "plain_ms": p,
+            "launches": launches, "max_abs_err": err, **numbers,
         }
 
     b3_launches = gamg_counts["B3"]

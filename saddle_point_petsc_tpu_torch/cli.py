@@ -47,6 +47,7 @@ from saddle_point_petsc_tpu_torch.ops.stencil import flat_to_field
 from saddle_point_petsc_tpu_torch.solvers.krylov import KrylovResult
 from saddle_point_petsc_tpu_torch.solvers.ksp import KSP
 from saddle_point_petsc_tpu_torch.utils import monitor, viewers, vtk
+from saddle_point_petsc_tpu_torch.utils.device import resolve_device
 from saddle_point_petsc_tpu_torch.utils.options import Options
 
 _DTYPES = {"f32": torch.float32, "f64": torch.float64}
@@ -67,9 +68,7 @@ def _device(opts):
     name = opts.get_str("device", "cuda")
     if name != "cpu" and name.split(":")[0] != "cuda":
         raise ValueError(f"-device {name}: use cuda or cpu")
-    if name != "cpu" and not torch.cuda.is_available():
-        raise RuntimeError(f"-device {name}: no CUDA device is available")
-    return torch.device(name)
+    return resolve_device(name)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,107 @@
+// Native host kernels of the PyTorch port: setup-time graph work that is
+// too slow in Python at a million rows.
+//   - sptpu_rcm: reverse Cuthill-McKee ordering (csr_to_dia's RCM option)
+//   - sptpu_aggregate: greedy standard aggregation (gamg's PCSetUp)
+//
+// Copies of the two functions of the same names in the JAX package's
+// saddle_point_petsc_tpu/csrc/sptpu_native.cpp, so that the port builds
+// and loads nothing of that package; tests/test_torch_utils.py holds the
+// two to the same arrays. Host code, not device kernels.
+//
+// Built at first use by saddle_point_petsc_tpu_torch/utils/native.py:
+//   g++ -O3 -std=c++17 -shared -fPIC -o <out> native_host.cpp
+// and loaded through ctypes; every caller keeps a numpy/scipy fallback.
+
+#include <algorithm>
+#include <cstdint>
+#include <vector>
+
+extern "C" {
+
+// Reverse Cuthill-McKee ordering (bandwidth reduction). indptr/indices:
+// CSR structure of a symmetric pattern. perm (out, length n).
+void sptpu_rcm(int64_t n, const int32_t* indptr, const int32_t* indices,
+               int32_t* perm) {
+  std::vector<int32_t> deg(n);
+  for (int64_t i = 0; i < n; ++i) deg[i] = indptr[i + 1] - indptr[i];
+  std::vector<char> visited(n, 0);
+  std::vector<int32_t> order;
+  order.reserve(n);
+  std::vector<int32_t> queue;
+  while ((int64_t)order.size() < n) {
+    // pick unvisited vertex of minimum degree as the next component seed
+    int32_t seed = -1, best = INT32_MAX;
+    for (int64_t i = 0; i < n; ++i)
+      if (!visited[i] && deg[i] < best) {
+        best = deg[i];
+        seed = (int32_t)i;
+      }
+    if (seed < 0) break;
+    queue.clear();
+    queue.push_back(seed);
+    visited[seed] = 1;
+    for (size_t qh = 0; qh < queue.size(); ++qh) {
+      const int32_t v = queue[qh];
+      order.push_back(v);
+      std::vector<int32_t> nbrs;
+      for (int32_t p = indptr[v]; p < indptr[v + 1]; ++p) {
+        const int32_t u = indices[p];
+        if (!visited[u]) {
+          visited[u] = 1;
+          nbrs.push_back(u);
+        }
+      }
+      std::sort(nbrs.begin(), nbrs.end(),
+                [&](int32_t a, int32_t b) { return deg[a] < deg[b]; });
+      for (int32_t u : nbrs) queue.push_back(u);
+    }
+  }
+  for (int64_t i = 0; i < n; ++i) perm[i] = order[n - 1 - i];  // reverse
+}
+
+// Greedy standard aggregation over a strength graph (smoothed-aggregation
+// AMG setup). indptr/indices: CSR of the strong off-diagonal connections
+// (symmetric). agg (out, length n): aggregate id per node. Returns the
+// aggregate count. Three passes (Vanek/Mandel/Brezina):
+//   1. a node whose strong neighbours are all unaggregated roots a new
+//      aggregate containing itself and those neighbours;
+//   2. remaining nodes attach to the first adjacent aggregate (decided on
+//      the state after pass 1);
+//   3. leftovers form aggregates with any still-free strong neighbours.
+int64_t sptpu_aggregate(int64_t n, const int32_t* indptr,
+                        const int32_t* indices, int32_t* agg) {
+  for (int64_t i = 0; i < n; ++i) agg[i] = -1;
+  int32_t na = 0;
+  for (int64_t i = 0; i < n; ++i) {  // pass 1
+    if (agg[i] >= 0) continue;
+    bool free_nbhd = true;
+    for (int32_t p = indptr[i]; p < indptr[i + 1] && free_nbhd; ++p)
+      if (agg[indices[p]] >= 0) free_nbhd = false;
+    if (!free_nbhd) continue;
+    agg[i] = na;
+    for (int32_t p = indptr[i]; p < indptr[i + 1]; ++p)
+      agg[indices[p]] = na;
+    ++na;
+  }
+  std::vector<int32_t> attach(n, -1);  // pass 2
+  for (int64_t i = 0; i < n; ++i) {
+    if (agg[i] >= 0) continue;
+    for (int32_t p = indptr[i]; p < indptr[i + 1]; ++p)
+      if (agg[indices[p]] >= 0) {
+        attach[i] = agg[indices[p]];
+        break;
+      }
+  }
+  for (int64_t i = 0; i < n; ++i)
+    if (attach[i] >= 0) agg[i] = attach[i];
+  for (int64_t i = 0; i < n; ++i) {  // pass 3
+    if (agg[i] >= 0) continue;
+    agg[i] = na;
+    for (int32_t p = indptr[i]; p < indptr[i + 1]; ++p)
+      if (agg[indices[p]] < 0) agg[indices[p]] = na;
+    ++na;
+  }
+  return na;
+}
+
+}  // extern "C"

@@ -23,6 +23,7 @@ from saddle_point_petsc_tpu_torch.ops.stencil import (
     nodes_to_field,
     stencil_zero_rows_columns,
 )
+from saddle_point_petsc_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,8 +54,9 @@ def _body_force(body_force):
 
 
 def assemble_poisson(nex, ney, dtype=torch.float64, device=None, body_force="constant"):
-    """Assemble the vector-Poisson system on an nex x ney element grid."""
-    coords = fem.uniform_node_coords(nex, ney, dtype=dtype, device=device)
+    """Assemble the vector-Poisson system on an nex x ney element grid, on
+    `device` (None: the CUDA card, see utils/device.py)."""
+    coords = fem.uniform_node_coords(nex, ney, dtype=dtype, device=resolve_device(device))
     ke = fem.batched_element_matrices(coords, nex, ney)
     W = assemble_stencil(ke)
     del ke
@@ -87,12 +89,13 @@ def assemble_poisson_csr(nex, ney, dtype=torch.float64, device=None, compact=Tru
     """Assemble the same system in CSR form (the general sparse route).
 
     COO triplets from all elements -> symmetric boundary elimination ->
-    sort and deduplicate -> CSR, on `device`; `compact` drops the padding.
+    sort and deduplicate -> CSR, on `device` (None: the CUDA card);
+    `compact` drops the padding.
     Returns (csr, f, mask, coords): f the flat interleaved right-hand side
     of the default body force f = (1, 2) (as the JAX package, this route
     takes no other), mask the (n,) eliminated rows, coords (ny, nx, 2).
     """
-    coords = fem.uniform_node_coords(nex, ney, dtype=dtype, device=device)
+    coords = fem.uniform_node_coords(nex, ney, dtype=dtype, device=resolve_device(device))
     ke = fem.batched_element_matrices(coords, nex, ney)
     eq = fem.element_eqnums(nex, ney, device=coords.device)  # (ney, nex, 8)
     rows = eq[..., :, None].expand(*eq.shape, 8).reshape(-1)
@@ -119,7 +122,8 @@ def _tensor(a, dtype, device):
 def poisson_problem_from_numpy(planes, f, bc_mask, coords, device=None, dtype=torch.float64):
     """PoissonProblem from assembled numpy arrays (for example the JAX
     package's): planes (4, 3, 3, ny, nx), f (2, ny, nx), bc_mask (ny, nx),
-    coords (ny, nx, 2)."""
+    coords (ny, nx, 2), on `device` (None: the CUDA card)."""
+    device = resolve_device(device)
     planes = _tensor(planes, dtype, device)
     if planes.ndim != 5 or tuple(planes.shape[:3]) != (4, 3, 3):
         raise ValueError(f"planes shape {tuple(planes.shape)}, need (4, 3, 3, ny, nx)")

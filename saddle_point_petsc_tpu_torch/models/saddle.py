@@ -118,6 +118,7 @@ def assemble_saddle(
     g defaults to zeros. With the constant body force f=(1,2), f lies in
     range(B^T) of the default constraints and the solution is u=0,
     lam=(1,2,0,0); body_force="trig" gives a non-trivial constrained solve.
+    Runs on `device` (None: the CUDA card, see utils/device.py).
     """
     prob = assemble_poisson(nex, ney, dtype=dtype, device=device, body_force=body_force)
     fns = default_constraints()[:nconstraints]
@@ -130,10 +131,11 @@ def assemble_saddle(
 def saddle_problem_from_numpy(planes, Bf, f, g, bc_mask, coords, device=None, dtype=torch.float64):
     """SaddleProblem from assembled numpy arrays (for example the JAX
     package's): planes (4, 3, 3, ny, nx), Bf (m, 2, ny, nx), f (2, ny, nx),
-    g (m,), bc_mask (ny, nx), coords (ny, nx, 2)."""
+    g (m,), bc_mask (ny, nx), coords (ny, nx, 2), on `device` (None: the
+    CUDA card)."""
     prob = poisson_problem_from_numpy(planes, f, bc_mask, coords, device=device, dtype=dtype)
-    Bf = torch.tensor(np.asarray(Bf), dtype=dtype, device=device)
-    g = torch.tensor(np.asarray(g).reshape(-1), dtype=dtype, device=device)
+    Bf = torch.tensor(np.asarray(Bf), dtype=dtype, device=prob.f.device)
+    g = torch.tensor(np.asarray(g).reshape(-1), dtype=dtype, device=prob.f.device)
     if Bf.ndim != 4 or tuple(Bf.shape[1:]) != (2, *prob.grid_shape) or g.shape != Bf.shape[:1]:
         raise ValueError("Bf and g do not match the planes' grid")
     return SaddleProblem(SaddleOperator(prob.A, Bf), prob.f, g, prob.bc_mask, prob.coords)
@@ -152,7 +154,8 @@ def solve_saddle_point_problem(
     """High-level driver: assemble -> options-configured KSP solve ->
     optional viewers -> optional VTK. `constraints=False` solves the plain
     vector-Poisson system with GMRES/Jacobi; True the full KKT system with
-    MINRES/Schur. Returns (u_field, KrylovResult, problem)."""
+    MINRES/Schur. Runs on `device` (None: the CUDA card). Returns
+    (u_field, KrylovResult, problem)."""
     opts = opts if opts is not None else Options()
     if constraints:
         prob = assemble_saddle(nex, ney, dtype=dtype, device=device, body_force=body_force)

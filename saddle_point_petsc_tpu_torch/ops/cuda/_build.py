@@ -10,27 +10,24 @@ plain C interface, compiled at first use with nvcc and loaded with ctypes:
 `build_all()` starts one nvcc for every source at once and waits for all.
 The output goes to `csrc/_build/` inside the package (ignored by git),
 named by the source's name and a hash of its text and the flags, so a
-stale build is never loaded. Each build runs under its own fcntl lock
-into a temporary name and is moved into place with os.replace, so
-parallel processes do not race. Nothing is compiled or loaded when this
-module is imported.
+stale build is never loaded; `csrc.compile_once` runs each build under a
+lock, so parallel processes do not race. Nothing is compiled or loaded
+when this module is imported.
 """
 from __future__ import annotations
 
 import concurrent.futures
 import ctypes
 import dataclasses
-import fcntl
 import hashlib
 import os
 import shutil
-import subprocess
 import threading
 import time
 from pathlib import Path
 
-CSRC = Path(__file__).resolve().parents[2] / "csrc"
-BUILD_DIR = CSRC / "_build"
+from saddle_point_petsc_tpu_torch.csrc import BUILD_DIR, CSRC, compile_once
+
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -83,25 +80,9 @@ def _library_path(name):
 
 def _compile(name, out):
     """Compile csrc/<name>.cu into `out` unless another process already has."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / f"{name}.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        try:
-            if out.exists():
-                return (), ""
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = (find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"))
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stderr}{proc.stdout}"
-                )
-            os.replace(tmp, out)
-            return cmd, proc.stderr + proc.stdout
-        finally:
-            fcntl.flock(lock, fcntl.LOCK_UN)
+    return compile_once(
+        name, out, lambda tmp: (find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu"))
+    )
 
 
 def load_library(name):

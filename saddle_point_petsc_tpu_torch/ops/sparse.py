@@ -32,6 +32,7 @@ from saddle_point_petsc_tpu_torch.ops.cuda.bdia import bdia_spmv_2d
 from saddle_point_petsc_tpu_torch.ops.cuda.dia import dia_spmv_2d
 from saddle_point_petsc_tpu_torch.ops.cuda.dia_spmm import dia_spmm
 from saddle_point_petsc_tpu_torch.ops.cuda.ell import ell_spmv
+from saddle_point_petsc_tpu_torch.utils.device import resolve_device
 
 
 def _row_sums(vals, indptr):
@@ -260,7 +261,9 @@ def csr_to_scipy(csr: CSR):
 
 
 def scipy_to_csr(a, device=None, dtype=None) -> CSR:
-    """scipy sparse -> CSR (sorted indices) on `device`."""
+    """scipy sparse -> CSR (sorted indices) on `device` (None: the CUDA
+    card, see utils/device.py)."""
+    device = resolve_device(device)
     a = a.tocsr()
     a.sort_indices()
     vals = torch.tensor(a.data, device=device)
@@ -288,7 +291,9 @@ def csr_to_bsr(csr: CSR, block: int = 2) -> BSR:
 
 
 def csr_from_numpy(indptr, cols, vals, shape, device=None, dtype=torch.float64) -> CSR:
-    """CSR from numpy arrays (for example the JAX package's)."""
+    """CSR from numpy arrays (for example the JAX package's) on `device`
+    (None: the CUDA card)."""
+    device = resolve_device(device)
     return CSR(
         torch.tensor(np.asarray(indptr), dtype=torch.int64, device=device),
         torch.tensor(np.asarray(cols), dtype=torch.int64, device=device),
@@ -452,7 +457,9 @@ class DIA:
 
 
 def dia_from_numpy(data, offsets, shape, device=None, dtype=torch.float64) -> DIA:
-    """DIA from numpy bands data (ndiag, n) and offsets."""
+    """DIA from numpy bands data (ndiag, n) and offsets on `device` (None:
+    the CUDA card)."""
+    device = resolve_device(device)
     return DIA(
         torch.tensor(np.asarray(data), dtype=dtype, device=device),
         tuple(int(o) for o in offsets),
@@ -464,7 +471,7 @@ def csr_to_dia(csr: CSR, rcm_reorder=False):
     """CSR -> DIA (host, setup time); returns (dia, perm).
 
     With rcm_reorder the matrix is first permuted by reverse Cuthill-McKee
-    (the shared native `rcm`, scipy's when it does not load):
+    (the port's native `rcm`, scipy's when it does not load):
     A_perm[i, j] = A[perm[i], perm[j]]. perm is None without it. Structured
     grid matrices are best left in their natural order.
     """
@@ -576,7 +583,9 @@ class BDIA:
 
 def bdia_from_numpy(data, offsets, shape, block=2, active=(), device=None,
                     dtype=torch.float64) -> BDIA:
-    """BDIA from numpy block bands data (ndiag, b, b, mb)."""
+    """BDIA from numpy block bands data (ndiag, b, b, mb) on `device`
+    (None: the CUDA card)."""
+    device = resolve_device(device)
     return BDIA(
         torch.tensor(np.asarray(data), dtype=dtype, device=device),
         tuple(int(o) for o in offsets),

@@ -54,7 +54,7 @@ def _problem(n):
     """The JAX package's assembled n x n-node CSR and f, and the port's copies."""
     csr_j, f_j = _jax_problem(n)
     csr_t = tsp.csr_from_numpy(np.asarray(csr_j.indptr), np.asarray(csr_j.cols),
-                               np.asarray(csr_j.vals), csr_j.shape)
+                               np.asarray(csr_j.vals), csr_j.shape, device="cpu")
     return csr_j, f_j, csr_t, torch.tensor(np.asarray(f_j))
 
 
@@ -189,7 +189,7 @@ def test_chebyshev_and_jacobi_on_csr_match():
 def test_assembled_problem_gamg_cg_matches():
     """The port's own assembly through gamg: the same CG iterations as the
     JAX package's."""
-    csr_t, f_t, _, _ = tpoisson.assemble_poisson_csr(32, 32)
+    csr_t, f_t, _, _ = tpoisson.assemble_poisson_csr(32, 32, device="cpu")
     csr_j, f_j = _jax_problem(33)
     rt = tkrylov.cg(csr_t, f_t, M=tamg.amg_pc(csr_t), rtol=1e-8)
     rj = jkrylov.cg(csr_j, f_j, M=jamg.amg_pc(csr_j), rtol=1e-8)

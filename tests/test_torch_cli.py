@@ -92,7 +92,7 @@ def test_cli_matches_jax(tmp_path, capsys, args):
 
 
 def test_vtk_roundtrip(tmp_path):
-    prob = tpoisson.assemble_poisson(3, 3)
+    prob = tpoisson.assemble_poisson(3, 3, device="cpu")
     u = torch.arange(32, dtype=torch.float64).reshape(2, 4, 4)
     path = tmp_path / "out.vtk"
     tvtk.write_vtk(path, prob.coords, u)
@@ -104,8 +104,8 @@ def test_vtk_roundtrip(tmp_path):
 
 def test_port_never_imports_jax(tmp_path):
     """Importing every module of the port and running its CLI on the CPU
-    (the saddle route, and -mat_type dia with gamg) leaves jax out of the
-    process."""
+    (the saddle route, and -mat_type dia with gamg) leaves jax and every
+    module of the JAX package out of the process."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import saddle_point_petsc_tpu_torch as p\n"
@@ -121,6 +121,9 @@ def test_port_never_imports_jax(tmp_path):
         "assert rc == 0, rc\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
         "assert not bad, bad\n"
+        "ref = sorted(m for m in sys.modules\n"
+        "             if m == 'saddle_point_petsc_tpu' or m.startswith('saddle_point_petsc_tpu.'))\n"
+        "assert not ref, ref\n"
         "print('no jax')\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}
@@ -179,7 +182,7 @@ def test_unread_backend_flag_is_reported(capsys, flag, route):
 
 def test_viewers_match_jax(tmp_path, capsys):
     jp = jpoisson.assemble_poisson(2, 2)
-    tp = tpoisson.assemble_poisson(2, 2)
+    tp = tpoisson.assemble_poisson(2, 2, device="cpu")
     for view, A, name in ((jview, jp.A, "j.npz"), (tview, tp.A, "t.npz")):
         assert view(A, Options(["-A_mat_view", f"{tmp_path / name}:npz"]), "A_mat_view", "A")
     np.testing.assert_allclose(
@@ -209,7 +212,7 @@ def test_viewer_large_sparse_no_densify(tmp_path, capsys):
     reproduce the operator's matvec."""
     import scipy.sparse as sps
 
-    prob = tpoisson.assemble_poisson(127, 127)  # 128^2 * 2 = 32768 rows
+    prob = tpoisson.assemble_poisson(127, 127, device="cpu")  # 128^2 * 2 = 32768 rows
     assert tview(prob.A, Options(["-A_mat_view"]), "A_mat_view", "A")
     assert "sparse 32768x32768" in capsys.readouterr().out
     npz = tmp_path / "a.npz"

@@ -199,25 +199,58 @@ def test_ell_kernel_matches_plain(dev, dtype, tol):
         assert _within(y, ell.ell_spmv_plain(cols_t, vals_t, x), tol)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
-def test_dia_spmm_kernel_matches_plain(dev, dtype, tol):
-    """B6 with X row-major and as the transpose of a (k, n) batch, k up to
-    past one register chunk, an offset beyond the rows; each column against
-    B3 on it."""
+_B6_OFFSETS = (
+    (0,),
+    (-37, -1, 0, 1, 37),
+    (-300, -17, -1, 0, 3, 129, 255),
+    (3, -5000, 0, 5000, 1, -64, 64, -2, 2, -3),  # unsorted, gaps wider than a tile's rows
+    tuple(range(-10, 11)),
+    tuple(range(-2000, 2000, 97)),
+)
+
+
+@pytest.mark.parametrize("path", [None, "strided", "rows", "blocked"])
+@pytest.mark.parametrize("layout", ["rows", "(k,n).T"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dia_spmm_kernel_matches_plain(dev, dtype, layout, path):
+    """B6 with X row-major and as the transpose of a (k, n) batch, k from 1
+    to past two column chunks, n from 1 up, offsets beyond the rows, gaps
+    wider than a tile's rows and padding entries of `data` that are not
+    finite: the bits of its plain version and of B3 column by column (both
+    round each product and sum in offset order), through the path the
+    wrapper picks (None) and through each path forced where it applies (the
+    row path: row-major X with k a multiple of 8; the blocked path:
+    column-contiguous X and offsets whose plan fits, which the wrapper
+    refuses otherwise)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
-    for n, offs in ((1, (0,)), (37, (-37, -1, 0, 1, 37)), (1000, (-300, -17, -1, 0, 3, 129, 255))):
-        data = torch.randn((len(offs), n), generator=gen, dtype=dtype, device=dev)
-        for k in (1, 4, 9):
-            rows = torch.randn((n, k), generator=gen, dtype=dtype, device=dev)
-            for X in (rows, rows.T.contiguous().T):
+    for n in (1, 31, 1000, 100003):
+        for offs in _B6_OFFSETS:
+            data = torch.randn((len(offs), n), generator=gen, dtype=dtype, device=dev)
+            for d, off in enumerate(offs):  # padding: entries that meet no row of X
+                if off > 0:
+                    data[d, max(n - off, 0):] = float("nan")
+                elif off < 0:
+                    data[d, : min(-off, n)] = float("inf")
+            for k in (1, 4, 8, 9, 16, 17):
+                rows = torch.randn((n, k), generator=gen, dtype=dtype, device=dev)
+                X = rows if layout == "rows" else rows.T.contiguous().T
+                if path == "rows" and not dia_spmm._rows_aligned(X, X):
+                    continue
+                if path == "blocked" and X.stride(0) != 1:
+                    continue
+                if path == "blocked" and dia_spmm._plan(offs, n) is None:
+                    with pytest.raises(ValueError):
+                        dia_spmm._launch(data, X, offs, path=path)
+                    continue
                 dia_spmm.reset_launches()
-                Y = dia_spmm.dia_spmm(data, X, offs)
+                Y = dia_spmm.dia_spmm(data, X, offs) if path is None else dia_spmm._launch(
+                    data, X, offs, path=path)
                 assert dia_spmm.launches == 1 and (k == 1 or Y.stride() == X.stride())
                 torch.cuda.synchronize()
-                assert _within(Y, dia_spmm.dia_spmm_plain(data, X, offs), tol)
+                assert torch.equal(Y, dia_spmm.dia_spmm_plain(data, X, offs)), (n, offs, k)
                 for j in range(k):
-                    assert _within(Y[:, j], dia.dia_spmv_2d(data, X[:, j].contiguous(), offs), tol)
+                    assert torch.equal(Y[:, j], dia.dia_spmv_2d(data, X[:, j].contiguous(), offs))
 
 
 def test_new_wrappers_reject_mixed_devices(dev):

@@ -73,8 +73,8 @@ def _assert_same_run(rt, rj, rj_ulp, x_tol):
 @pytest.mark.parametrize("n", [9, 17])
 def test_saddle_from_numpy_matches_port_assembly(n):
     jp, arrays = _jax_saddle_arrays(n)
-    got = tsaddle.saddle_problem_from_numpy(*arrays)
-    own = tsaddle.assemble_saddle(n - 1, n - 1, body_force="trig")
+    got = tsaddle.saddle_problem_from_numpy(*arrays, device="cpu")
+    own = tsaddle.assemble_saddle(n - 1, n - 1, body_force="trig", device="cpu")
     for a, b in ((got.A.planes, own.A.planes), (got.Bf, own.Bf), (got.f, own.f),
                  (got.g, own.g), (got.coords, own.coords)):
         assert np.max(np.abs(_np(a) - _np(b))) <= 1e-13 * max(np.max(np.abs(_np(b))), 1e-300)
@@ -85,14 +85,14 @@ def test_saddle_from_numpy_matches_port_assembly(n):
 def test_from_numpy_rejects_mismatched_arrays():
     _, (planes, Bf, f, g, mask, coords) = _jax_saddle_arrays(9)
     with pytest.raises(ValueError):
-        tsaddle.saddle_problem_from_numpy(planes, Bf[:, :, :-1], f, g, mask, coords)
+        tsaddle.saddle_problem_from_numpy(planes, Bf[:, :, :-1], f, g, mask, coords, device="cpu")
     with pytest.raises(ValueError):
-        tpoisson.poisson_problem_from_numpy(planes, f[:, :-1], mask, coords)
+        tpoisson.poisson_problem_from_numpy(planes, f[:, :-1], mask, coords, device="cpu")
 
 
 def test_saddle_operator_apply():
     jp, arrays = _jax_saddle_arrays(9)
-    tp = tsaddle.saddle_problem_from_numpy(*arrays)
+    tp = tsaddle.saddle_problem_from_numpy(*arrays, device="cpu")
     rng = np.random.default_rng(2)
     u = rng.standard_normal((2, 9, 9))
     lam = rng.standard_normal(4)
@@ -105,7 +105,7 @@ def test_saddle_operator_apply():
 @pytest.mark.parametrize("fact_type", ["diag", "lower", "upper", "full"])
 def test_schur_pc_apply(fact_type):
     jp, arrays = _jax_saddle_arrays(9)
-    tp = tsaddle.saddle_problem_from_numpy(*arrays)
+    tp = tsaddle.saddle_problem_from_numpy(*arrays, device="cpu")
     Mj = jpc.schur_pc(jp.A, jp.Bf, fact_type=fact_type)
     Mt = tpc.schur_pc(tp.A, tp.Bf, fact_type=fact_type)
     np.testing.assert_allclose(_np(Mt.S_inv), np.asarray(Mj.S_inv), rtol=1e-12)
@@ -130,7 +130,7 @@ def test_inv_small(b):
 def test_jacobi_and_identity_pc():
     jp = jpoisson.assemble_poisson(8, 8, body_force="trig")
     tp = tpoisson.poisson_problem_from_numpy(
-        *(np.asarray(a) for a in (jp.A.planes, jp.f, jp.bc_mask, jp.coords))
+        *(np.asarray(a) for a in (jp.A.planes, jp.f, jp.bc_mask, jp.coords)), device="cpu"
     )
     r = np.random.default_rng(4).standard_normal((2, 9, 9))
     np.testing.assert_allclose(
@@ -144,7 +144,7 @@ def test_jacobi_and_identity_pc():
 @pytest.mark.parametrize("n", [17, 33])
 def test_minres_saddle_matches(n):
     jp, arrays = _jax_saddle_arrays(n)
-    tp = tsaddle.saddle_problem_from_numpy(*arrays)
+    tp = tsaddle.saddle_problem_from_numpy(*arrays, device="cpu")
     Mj = jpc.schur_pc(jp.A, jp.Bf, fact_type="diag")
     rj = jk.minres(jp.K, jp.rhs, M=Mj, rtol=1e-8, maxiter=2000)
     rj_ulp = jk.minres(jp.K, (jp.f * ULP, jp.g), M=Mj, rtol=1e-8, maxiter=2000)
@@ -159,7 +159,7 @@ def test_minres_saddle_matches(n):
 def poisson17():
     jp = jpoisson.assemble_poisson(16, 16, body_force="trig")
     tp = tpoisson.poisson_problem_from_numpy(
-        *(np.asarray(a) for a in (jp.A.planes, jp.f, jp.bc_mask, jp.coords))
+        *(np.asarray(a) for a in (jp.A.planes, jp.f, jp.bc_mask, jp.coords)), device="cpu"
     )
     return jp, tp
 
@@ -189,7 +189,7 @@ def test_minres_diverged_its_and_zero_rhs():
     converges at iteration 0 with x = 0 (PETSc semantics, as the JAX
     package)."""
     _, arrays = _jax_saddle_arrays(9)
-    tp = tsaddle.saddle_problem_from_numpy(*arrays)
+    tp = tsaddle.saddle_problem_from_numpy(*arrays, device="cpu")
     M = tpc.schur_pc(tp.A, tp.Bf, fact_type="diag")
     res = tk.minres(tp.K, tp.rhs, M=M, rtol=1e-14, maxiter=5)
     assert res.iterations == 5 and res.reason_name() == "DIVERGED_ITS"
@@ -213,7 +213,8 @@ def test_solve_saddle_point_problem_matches(tmp_path, constraints):
     )
     path = tmp_path / "u.vtk"
     ut, rt, _ = tsaddle.solve_saddle_point_problem(
-        8, 8, opts=Options(opts), constraints=constraints, body_force="trig", vtk_path=path
+        8, 8, opts=Options(opts), constraints=constraints, body_force="trig", vtk_path=path,
+        device="cpu",
     )
     assert (rt.iterations, rt.converged_reason) == (int(rj.iterations), int(rj.converged_reason))
     assert _rel(ut, uj) <= 1e-8

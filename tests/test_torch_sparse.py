@@ -76,7 +76,7 @@ def _poisson_csr(n):
     """The JAX package's assembled CSR at n x n nodes, and the port's copy."""
     csr_j = _jax_poisson_csr(n)
     csr_t = tsp.csr_from_numpy(np.asarray(csr_j.indptr), np.asarray(csr_j.cols),
-                               np.asarray(csr_j.vals), csr_j.shape)
+                               np.asarray(csr_j.vals), csr_j.shape, device="cpu")
     return csr_j, csr_t
 
 
@@ -107,7 +107,7 @@ def test_coo_sum_duplicates_and_coo_to_csr(seed):
 @pytest.mark.parametrize("nex,ney", [(3, 4), (8, 8)])
 def test_assemble_poisson_csr_matches(nex, ney):
     csr_j, f_j, m_j, c_j = jpoisson.assemble_poisson_csr(nex, ney)
-    csr_t, f_t, m_t, c_t = tpoisson.assemble_poisson_csr(nex, ney)
+    csr_t, f_t, m_t, c_t = tpoisson.assemble_poisson_csr(nex, ney, device="cpu")
     _equal(csr_t.indptr, csr_j.indptr)
     _equal(csr_t.cols, csr_j.cols)
     _close(csr_t.vals, csr_j.vals, rel=1e-13)
@@ -138,7 +138,7 @@ def test_csr_to_dia_offsets_exact(case):
     if case == "random":
         a = _random_square(5)
         csr_j = jsp.scipy_to_csr(a)
-        csr_t = tsp.scipy_to_csr(a)
+        csr_t = tsp.scipy_to_csr(a, device="cpu")
     else:
         csr_j, csr_t = _poisson_csr(int(case[7:]))
     dj, pj = jsp.csr_to_dia(csr_j)
@@ -154,7 +154,7 @@ def test_csr_to_dia_rcm_matches():
     a = _random_square(2, n=60, density=0.06)
     a = (a + a.T).tocsr()
     dj, pj = jsp.csr_to_dia(jsp.scipy_to_csr(a), rcm_reorder=True)
-    dt, pt = tsp.csr_to_dia(tsp.scipy_to_csr(a), rcm_reorder=True)
+    dt, pt = tsp.csr_to_dia(tsp.scipy_to_csr(a, device="cpu"), rcm_reorder=True)
     _equal(pt, pj)
     assert dt.offsets == dj.offsets
     _close(dt.data, dj.data)
@@ -186,7 +186,7 @@ def _formats(n=9):
     coo_j = jsp.COO(jnp.asarray(rows, jnp.int32), jnp.asarray(cols, jnp.int32), jnp.asarray(vals), a.shape)
     coo_t = tsp.COO(torch.tensor(rows), torch.tensor(cols), torch.tensor(vals), a.shape)
     out = [("coo", coo_j, coo_t), ("csr", csr_j, csr_t)]
-    out.append(("ell", jsp.csr_to_ell(jsp.scipy_to_csr(a)), tsp.csr_to_ell(tsp.scipy_to_csr(a))))
+    out.append(("ell", jsp.csr_to_ell(jsp.scipy_to_csr(a)), tsp.csr_to_ell(tsp.scipy_to_csr(a, device="cpu"))))
     out.append(("bsr", jsp.csr_to_bsr(csr_j, 2), tsp.csr_to_bsr(csr_t, 2)))
     out.append(("dia", jsp.csr_to_dia(csr_j)[0], tsp.csr_to_dia(csr_t)[0]))
     out.append(("bdia", jsp.bsr_to_bdia(jsp.csr_to_bsr(csr_j, 2)),
@@ -231,8 +231,9 @@ def test_from_numpy_constructors():
     csr_j, _ = _poisson_csr(9)
     dj = jsp.csr_to_dia(csr_j)[0]
     bj = jsp.bsr_to_bdia(jsp.csr_to_bsr(csr_j, 2))
-    dt = tsp.dia_from_numpy(np.asarray(dj.data), dj.offsets, dj.shape)
-    bt = tsp.bdia_from_numpy(np.asarray(bj.data), bj.offsets, bj.shape, bj.block, bj.active)
+    dt = tsp.dia_from_numpy(np.asarray(dj.data), dj.offsets, dj.shape, device="cpu")
+    bt = tsp.bdia_from_numpy(np.asarray(bj.data), bj.offsets, bj.shape, bj.block, bj.active,
+                             device="cpu")
     x = np.random.default_rng(1).standard_normal(dj.shape[0])
     _close(dt(torch.tensor(x)), dj(jnp.asarray(x)))
     _close(bt(torch.tensor(x)), bj(jnp.asarray(x)))

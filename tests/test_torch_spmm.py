@@ -33,6 +33,7 @@ from saddle_point_petsc_tpu.utils.options import Options
 from saddle_point_petsc_tpu_torch.ops import sparse as tsp
 from saddle_point_petsc_tpu_torch.ops import stencil as tstencil
 from saddle_point_petsc_tpu_torch.ops.cuda import dia as tdia
+from saddle_point_petsc_tpu_torch.ops.cuda import dia_spmm as tdia_spmm
 from saddle_point_petsc_tpu_torch.ops.cuda import ell as tell
 from saddle_point_petsc_tpu_torch.ops.cuda import spmm as tspmm
 from saddle_point_petsc_tpu_torch.solvers import amg as tamg
@@ -109,7 +110,7 @@ def _ell_pair():
     a.eliminate_zeros()
     a.sort_indices()
     assert a.indptr[18] == a.indptr[17]
-    return jsp.csr_to_ell(jsp.scipy_to_csr(a)), tsp.csr_to_ell(tsp.scipy_to_csr(a))
+    return jsp.csr_to_ell(jsp.scipy_to_csr(a)), tsp.csr_to_ell(tsp.scipy_to_csr(a, device="cpu"))
 
 
 @pytest.mark.parametrize("ref", ["pallas", "xla"])
@@ -143,7 +144,7 @@ def _dia_pair():
     a = (a + sps.eye(32)).tocsr()
     a.sort_indices()
     dj, _ = jsp.csr_to_dia(jsp.scipy_to_csr(a))
-    return a, dj, tsp.dia_from_numpy(np.asarray(dj.data), dj.offsets, dj.shape)
+    return a, dj, tsp.dia_from_numpy(np.asarray(dj.data), dj.offsets, dj.shape, device="cpu")
 
 
 @pytest.mark.parametrize("layout", ["rows", "transposed"])
@@ -168,6 +169,70 @@ def test_dia_matmat_matches_jax(layout, ref):
     else:
         _close(got, jsp.dia_matmat(dj, jnp.asarray(X)))
         _close(At.matmat(Xt), dj.matmat(jnp.asarray(X)))
+
+
+def _offsets_1025():
+    """The bands of the 1025^2-node operator in natural order (two fields
+    interleaved: rows 2 * 1025 apart), built as csr_to_dia builds them."""
+    row = 2 * 1025
+    return tuple(r * row + d for r in (-1, 0, 1) for d in range(-3, 4))
+
+
+_PLAN_CASES = [
+    (_offsets_1025(), 2 * 1025 * 1025),
+    ((-300, -17, -1, 0, 3, 129, 255), 1000),
+    ((-300, -17, -1, 0, 3, 129, 255), 31),
+    ((3, -5000, 0, 5000, 1, -64, 64, -2, 2, -3), 31),
+    ((3, -5000, 0, 5000, 1, -64, 64, -2, 2, -3), 100003),
+    (tuple(range(-10, 11)), 1000),
+    (tuple(range(-2000, 2000, 97)), 100003),
+    (tuple(int(o) for o in np.random.default_rng(11).integers(-400, 400, 40)), 5000),
+    ((-7, 7), 5),
+]
+
+
+@pytest.mark.parametrize("offsets,n", _PLAN_CASES)
+def test_dia_spmm_plan_runs(offsets, n):
+    """The blocked path's runs hold every band that meets a row once, in the
+    order given (so the sum keeps the offsets' order), at most MAX_BANDS a
+    run, each run's offsets rising by one; a run ends only where the next
+    band cannot join it; the kernel's plan mirrors the runs."""
+    runs = tdia_spmm.plan_runs(offsets, n)
+    flat = [b for run in runs for b in run]
+    assert flat == [(d, o) for d, o in enumerate(offsets) if abs(o) < n]
+    for run in runs:
+        offs = [o for _, o in run]
+        assert 1 <= len(run) <= tdia_spmm.MAX_BANDS
+        assert offs == list(range(offs[0], offs[0] + len(offs)))
+    for a, b in zip(runs, runs[1:]):
+        assert len(a) == tdia_spmm.MAX_BANDS or b[0][1] != a[-1][1] + 1
+    plan = tdia_spmm._plan(offsets, n)
+    if not 1 <= len(runs) <= tdia_spmm.MAX_RUNS:
+        assert plan is None
+        return
+    assert plan.nruns == len(runs)
+    for r, run in enumerate(runs):
+        lo, first, cnt = plan.run[r]
+        assert (lo, cnt) == (run[0][1], len(run))
+        assert [plan.band[first + e] for e in range(cnt)] == [d for d, _ in run]
+    if offsets == _offsets_1025():
+        assert [len(run) for run in runs] == [7, 7, 7]
+
+
+def test_dia_spmm_paths_on_cpu():
+    """The path choice: blocked for f32 column-contiguous X and Y with a
+    plan, the row path for aligned row-major X and Y, strided otherwise."""
+    offs, n = _offsets_1025(), 2 * 1025 * 1025
+    plan = tdia_spmm._plan(offs, n)
+    for dtype in (torch.float32, torch.float64):
+        for k, layout, p, want in ((8, "rows", plan, "rows"), (8, "t", plan, "blocked"),
+                                   (9, "rows", plan, "strided"), (8, "t", None, "strided"),
+                                   (16, "rows", None, "rows")):
+            X = torch.zeros((64, k), dtype=dtype)
+            X = X if layout == "rows" else X.T.contiguous().T
+            if want == "blocked" and dtype == torch.float64:
+                want = "strided"
+            assert tdia_spmm._path(X, torch.empty_like(X), p) == want, (dtype, k, layout)
 
 
 # -- cg_multi and KSP.mat_solve -------------------------------------------------
@@ -223,8 +288,8 @@ def _mat_solve_problem():
     ops_t = {
         "stencil": tstencil.StencilOperator(torch.tensor(np.asarray(prob.A.planes))),
         "csr": tsp.csr_from_numpy(np.asarray(csr.indptr), np.asarray(csr.cols),
-                                  np.asarray(csr.vals), csr.shape),
-        "dia": tsp.dia_from_numpy(np.asarray(dia.data), dia.offsets, dia.shape),
+                                  np.asarray(csr.vals), csr.shape, device="cpu"),
+        "dia": tsp.dia_from_numpy(np.asarray(dia.data), dia.offsets, dia.shape, device="cpu"),
     }
     f = np.asarray(prob.f)
     fl = np.asarray(jstencil.field_to_flat(prob.f))
