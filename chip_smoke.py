@@ -64,6 +64,34 @@ Phases (each passes or raises; the script exits non-zero on any failure):
     Jacobi to rtol 1e-5: B6 once per iteration; ms per iteration, B6's
     share of the solve, true residuals against a single-right-hand-side
     CG of column 0.
+15. Geometric multigrid at 1025^2 f32 (mg_pc, Chebyshev smoother): setup
+    seconds and levels (eight, down to 5x5 nodes); each level's Galerkin
+    planes against a CPU f64 build from the same planes; B1 against its
+    plain version at every level's grid (1025^2 down to 5^2); one V-cycle
+    against the same V-cycle built and applied on the CPU; B1 launches and
+    host milliseconds per V-cycle.
+16. The saddle CLI at 1025^2 f32 to rtol 1e-5 with FGMRES and a Schur
+    fieldsplit whose A-block solve is that MG V-cycle, with the upper
+    factorization (must converge) and the full one (the JAX bench's, which
+    f32 breaks at this size; capped at 200 iterations): iterations,
+    PCSetUp and KSPSolve seconds, ms per iteration, the true residual in
+    f64, beside phase 5's MINRES + Jacobi at the same size.
+17. Mixed-precision refinement (solve_refined_kkt_fused with the JAX
+    bench's FGMRES-MG inner: rtol 1e-3, maxiter 60, restart 30; full and
+    upper Schur factorizations) to rtol 1e-8 at 257^2 and 1025^2: f64
+    residuals through B1 in f64, f32 inner solves through B1 in f32;
+    cycles, inner iterations, seconds, the f64 true relative residual
+    (plain matvec, <= 1e-8 except the full factorization at 1025^2, which
+    f32 breaks: three cycles of it), beside phase 4's direct f64 MINRES at
+    257^2 and a direct f64 FGMRES with the same Schur(upper, MG) PC at
+    both sizes.
+18. The new PC and KSP types through the CLI, each converging with B1 (B3
+    on -mat_type dia) launched: at 257^2 f64 Poisson, CG with -pc_type
+    pbjacobi, sor, bjacobi, chebyshev, fieldsplit and mg; bcgs, chebyshev
+    and richardson (-ksp_max_it 20) with mg; bcgs on -mat_type dia. Then
+    BASELINE config 1 (65^2 nodes, MINRES, Schur with a block-Jacobi
+    A-block) and config 3's solver (257^2, FGMRES, Schur with an inner CG
+    + MG A-block solve), f64 to rtol 1e-8.
 
 Each kernel's timing runs in the order plain, kernel, library, library,
 kernel, plain (medians of 60 launches each) and prints the kernel's
@@ -98,8 +126,9 @@ from saddle_point_petsc_tpu_torch import cli
 from saddle_point_petsc_tpu_torch.models import poisson
 from saddle_point_petsc_tpu_torch.ops import sparse
 from saddle_point_petsc_tpu_torch.ops.cuda import _build, bdia, dia, dia_spmm, ell, spmm, spmv
-from saddle_point_petsc_tpu_torch.ops.stencil import field_to_flat
-from saddle_point_petsc_tpu_torch.solvers import amg, krylov, precond
+from saddle_point_petsc_tpu_torch.models import saddle
+from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator, field_to_flat
+from saddle_point_petsc_tpu_torch.solvers import amg, krylov, multigrid, precond, refine
 from saddle_point_petsc_tpu_torch.solvers.ksp import KSP
 from saddle_point_petsc_tpu_torch.solvers.operators import SaddleOperator
 from saddle_point_petsc_tpu_torch.utils.options import Options
@@ -323,10 +352,11 @@ def phase_f64(tmp):
         raise AssertionError(f"plain solve: {res_p.reason_name()} in {res_p.iterations} its")
     if not dx <= 1e-6:
         raise AssertionError(f"kernel and plain solutions differ by {dx}")
-    return counts["B1"]
+    return counts["B1"], {"its": res.iterations, "solve_s": t_solve}
 
 
 def phase_f32(tmp):
+    out = {}
     for n in (1025, 256):
         run, _ = _cli([
             "-device", "cuda", "-problem_type", "saddle", "-body_force", "trig",
@@ -337,10 +367,13 @@ def phase_f32(tmp):
         its = run.result.iterations
         t = run.log.phases["KSPSolve"].total_s
         print(f"{n}^2 f32 MINRES: {its} its, solve {t:.4f} s, {t / its * 1e3:.4f} ms/it")
+        out[n] = {"its": its, "solve_s": t, "true_rel": _true_rel_kkt(
+            run.problem.A.planes.double(), run.problem.Bf.double(), run.problem.rhs, run.result.x)}
         if n == 256:
             print(f"256^2 f32 iterations {its} beside {BENCH_R04_KKT_ITERATIONS} in BENCH_r04.json")
             if abs(its - BENCH_R04_KKT_ITERATIONS) > 0.2 * BENCH_R04_KKT_ITERATIONS:
                 raise AssertionError(f"{its} iterations, not within 20% of {BENCH_R04_KKT_ITERATIONS}")
+    return out
 
 
 def _compare(label, got, ref, dtype, quiet=False):
@@ -927,6 +960,223 @@ def phase_mat_solve_dia_f32(dev, gamg_run, b6_ms):
     return counts["B6"]
 
 
+
+MG_GRID = 1025  # node grid side of phases 15-17's largest runs: eight MG levels, 1025 -> 5
+
+
+def _true_rel_kkt(planes64, Bf64, rhs, x):
+    """|rhs - K x| / |rhs| in f64 through the plain stencil matvec."""
+    K = SaddleOperator(lambda u: spmv.planes_matvec_field(planes64, u), Bf64)
+    x64 = tuple(t.double() for t in x)
+    rhs64 = tuple(t.double() for t in rhs)
+    return (krylov.tnorm(krylov.tsub(rhs64, K(x64))) / krylov.tnorm(rhs64)).item()
+
+
+def phase_mg(dev):
+    """Phase 15: the MG hierarchy at 1025^2 f32 on the card."""
+    n = MG_GRID
+    A = poisson.assemble_poisson(n - 1, n - 1, dtype=torch.float32, device=dev, body_force="trig").A
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    M = multigrid.mg_pc(A, smoother="chebyshev")
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    grids = [lvl.A.grid_shape[0] for lvl in M.levels]
+    n_c = M.coarse_inv.shape[0]
+    print(f"{n}^2 f32 mg_pc(chebyshev): setup {t_setup:.3f} s, {len(M.levels)} levels {grids}, "
+          f"coarse {n_c} dofs, B1 launches in setup {spmv.launches}")
+    if len(M.levels) != 8 or n_c != 50:
+        raise AssertionError(f"expected 8 levels down to 5x5 nodes, got {grids} and {n_c} coarse dofs")
+
+    # each level's coarse planes against a CPU f64 build from the same planes
+    ref = StencilOperator(A.planes.double().cpu())
+    for k in range(1, len(M.levels)):
+        ref = multigrid.galerkin_coarse_stencil(ref)
+        _compare(f"MG level {k} Galerkin planes ({ref.grid_shape[0]}^2) against CPU f64",
+                 M.levels[k].A.planes.double().cpu(), ref.planes, torch.float32)
+    ref = multigrid.galerkin_coarse_stencil(ref)  # the coarsest, 5^2
+    coarse = multigrid.galerkin_coarse_stencil(M.levels[-1].A)
+    _compare("MG coarsest Galerkin planes (5^2) against CPU f64", coarse.planes.double().cpu(), ref.planes,
+             torch.float32)
+
+    # B1 at every level's grid, down to 9^2 and the 5^2 coarsest
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    for op in [lvl.A for lvl in M.levels] + [coarse]:
+        for dtype in (torch.float32, torch.float64):
+            planes = op.planes.to(dtype)
+            x = torch.randn((2, *op.grid_shape), generator=gen, dtype=dtype, device=dev)
+            _compare(f"B1  MG level grid {op.grid_shape[0]}^2", spmv.stencil_spmv(planes, x),
+                     spmv.planes_matvec_field(planes, x), dtype)
+
+    # one V-cycle against the same hierarchy built and applied on the CPU
+    # (estimate_lmax draws its start on the CPU, so both start alike)
+    r = torch.randn((2, n, n), generator=gen, dtype=torch.float32, device=dev)
+    M_cpu = multigrid.mg_pc(StencilOperator(A.planes.cpu()), smoother="chebyshev")
+    _reset_counts()
+    z = M(r)
+    torch.cuda.synchronize()
+    per_cycle = spmv.launches
+    err = _compare("MG V-cycle on the card against the CPU", z.cpu(), M_cpu(r.cpu()), torch.float32)
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        z = M(r)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    print(f"MG V-cycle at {n}^2 f32: {per_cycle} B1 launches, {ms:.3f} ms (host clock, {reps} in a row), "
+          f"max|dz| against the CPU {err:.3e}")
+    if per_cycle < 2 * len(M.levels):
+        raise AssertionError(f"{per_cycle} B1 launches in a V-cycle of {len(M.levels)} levels")
+
+
+def phase_saddle_mg(minres):
+    """Phase 16: the saddle route at 1025^2 f32 with FGMRES and a Schur PC
+    whose A-block solve is the MG V-cycle: the upper factorization, which
+    must converge, and the full one (the JAX bench's), capped at 200
+    iterations, which f32 breaks at this size."""
+    n = MG_GRID
+    base = [
+        "-device", "cuda", "-problem_type", "saddle", "-body_force", "trig",
+        "-da_grid_x", str(n), "-da_grid_y", str(n), "-dtype", "f32", "-ksp_rtol", "1e-5",
+        "-ksp_type", "fgmres", "-pc_type", "fieldsplit", "-fieldsplit_inner_pc_type", "mg",
+        "-pc_mg_smoother", "chebyshev", "-ksp_converged_reason", "-log_view", "-no_vtk",
+    ]
+    for fact in ("upper", "full"):
+        argv = base + ["-pc_fieldsplit_schur_fact_type", fact]
+        if fact == "upper":
+            run, counts = _cli(argv)
+        else:
+            # FGMRES converges on its own (Arnoldi) residual only while the
+            # PC keeps its digits. In f32 the full factorization loses them:
+            # its Schur approximation B D^-1 B^T is about h^-2 smaller than
+            # the MG block's B A^-1 B^T, so zlam and A^-1 B^T zlam grow by
+            # that factor and cancel in zu (the JAX package does the same,
+            # tests/test_torch_multigrid.py). Uncapped, this run took 8101
+            # iterations to DIVERGED_DTOL on the H100.
+            print("$ python -m saddle_point_petsc_tpu_torch.cli " + " ".join(argv + ["-ksp_max_it", "200"]))
+            _reset_counts()
+            run = cli.run(argv + ["-ksp_max_it", "200"])
+            counts = _counts()
+        prob, res = run.problem, run.result
+        t_setup, t_solve = (run.log.phases[p].total_s for p in ("PCSetUp", "KSPSolve"))
+        true_rel = _true_rel_kkt(prob.A.planes.double(), prob.Bf.double(), prob.rhs, res.x)
+        its = res.iterations
+        print(
+            f"{n}^2 f32 FGMRES + Schur({fact}, MG chebyshev): {its} its, {res.reason_name()}, PCSetUp "
+            f"{t_setup:.3f} s, KSPSolve {t_solve:.4f} s ({t_solve / its * 1e3:.3f} ms/it), B1 launches "
+            f"{counts['B1']} ({counts['B1'] / its:.1f} per iteration), true residual {true_rel:.3e} (f64); "
+            f"phase 5's MINRES + Jacobi: {minres['its']} its, {minres['solve_s']:.4f} s "
+            f"({minres['solve_s'] / minres['its'] * 1e3:.3f} ms/it), true residual {minres['true_rel']:.3e}; "
+            f"KSPSolve ratio MINRES/FGMRES-MG {minres['solve_s'] / t_solve:.2f}"
+        )
+        if counts["B1"] < its:
+            raise AssertionError(f"B1 launched {counts['B1']} times for {its} iterations")
+        # the upper factorization leaves a true residual near f32's floor
+        if fact == "upper" and not true_rel <= 0.1:
+            raise AssertionError(f"Schur(upper): true residual {true_rel}")
+
+
+def phase_refine(dev, minres_f64):
+    """Phase 17: refinement to rtol 1e-8 with the FGMRES-MG inner solve
+    (the JAX bench's configuration, full Schur factorization), and with the
+    upper factorization, which f32 does not break at 1025^2."""
+    for n in (257, MG_GRID):
+        prob = saddle.assemble_saddle(n - 1, n - 1, dtype=torch.float64, device=dev, body_force="trig")
+        planes64, Bf64 = prob.A.planes, prob.Bf
+        for fact in ("full", "upper"):
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            A32 = StencilOperator(planes64.float())
+            K32 = SaddleOperator(A32, Bf64.float())
+            M = precond.schur_pc(A32, K32.Bf, inner_solve=multigrid.mg_pc(A32, smoother="chebyshev"),
+                                 fact_type=fact)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+
+            def inner(ru, rlam, ops):
+                res = krylov.fgmres(ops[0], (ru, rlam), M=ops[1], rtol=1e-3, maxiter=60, restart=30)
+                return res.x, res.iterations
+
+            # the bench's full factorization diverges in f32 at 1025^2
+            # (phase 16): three cycles show it
+            broken = (n, fact) == (MG_GRID, "full")
+            run = refine.solve_refined_kkt_fused(
+                K32, prob.rhs, rtol=1e-8, max_cycles=3 if broken else 30, planes_df=planes64, Bf_df=Bf64,
+                inner_rtol=1e-3, inner_maxiter=1500, inner=inner, inner_operands=(K32, M),
+            )
+            x, cycles, inner_its, rn, rn0 = run()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            b1 = spmv.launches
+            true_rel = _true_rel_kkt(planes64, Bf64, prob.rhs, x)
+            line = (f"{n}^2 refinement, f64 residual, f32 FGMRES + Schur({fact}, MG chebyshev) inner: {cycles} "
+                    f"cycles, {inner_its} inner its, setup {t1 - t0:.3f} s, solve {t2 - t1:.4f} s, B1 launches "
+                    f"{b1}, |r|/|b| {rn / rn0:.3e} (loop), true relative residual {true_rel:.3e} (f64, plain)")
+            if n == 257:
+                line += (f"; phase 4's direct f64 MINRES: {minres_f64['its']} its, {minres_f64['solve_s']:.4f} s, "
+                         f"ratio {minres_f64['solve_s'] / (t2 - t1):.2f}")
+            print(line)
+            if b1 == 0 or x[0].dtype != torch.float64:
+                raise AssertionError(f"refinement at {n}^2: {b1} B1 launches, x {x[0].dtype}")
+            if not broken and not true_rel <= 1e-8:
+                raise AssertionError(f"refinement at {n}^2 Schur({fact}): true residual {true_rel}")
+            del A32, K32, M, x
+        # the direct f64 solve with the same PC: FGMRES + Schur(upper, MG)
+        # in f64 to rtol 1e-8
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        M = precond.schur_pc(prob.A, prob.Bf, inner_solve=multigrid.mg_pc(prob.A, smoother="chebyshev"),
+                             fact_type="upper")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = krylov.fgmres(prob.K, prob.rhs, M=M, rtol=1e-8, maxiter=300, restart=30)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        true_rel = _true_rel_kkt(planes64, Bf64, prob.rhs, res.x)
+        print(f"{n}^2 direct f64 FGMRES + Schur(upper, MG chebyshev): {res.iterations} its, {res.reason_name()}, "
+              f"setup {t1 - t0:.3f} s, solve {t2 - t1:.4f} s ({(t2 - t1) / max(res.iterations, 1) * 1e3:.3f} ms/it), "
+              f"B1 launches {spmv.launches}, true relative residual {true_rel:.3e}")
+        if not true_rel <= 1e-7:
+            raise AssertionError(f"direct f64 FGMRES-MG at {n}^2: true residual {true_rel}")
+        del prob, planes64, Bf64, M, res
+
+
+def phase_sweep():
+    """Phase 18: the new PC and KSP types through the CLI."""
+    g257 = ["-device", "cuda", "-dtype", "f64", "-da_grid_x", "257", "-da_grid_y", "257",
+            "-ksp_rtol", "1e-8", "-ksp_converged_reason", "-no_vtk"]
+    runs = [
+        (["-ksp_type", "cg", "-pc_type", "pbjacobi"], ("B1",)),
+        (["-ksp_type", "cg", "-pc_type", "sor"], ("B1",)),
+        # 512 blocks of 259 rows: the default 4 would be capped at 33 of
+        # 4003, and 128 of 1033 took 8.2 s of host inverses on the H100's host
+        (["-ksp_type", "cg", "-pc_type", "bjacobi", "-pc_bjacobi_blocks", "512"], ("B1",)),
+        (["-ksp_type", "cg", "-pc_type", "chebyshev", "-pc_chebyshev_esteig"], ("B1",)),
+        (["-ksp_type", "cg", "-pc_type", "fieldsplit"], ("B1",)),
+        (["-ksp_type", "cg", "-pc_type", "mg"], ("B1",)),
+        (["-ksp_type", "bcgs", "-pc_type", "mg"], ("B1",)),
+        (["-ksp_type", "chebyshev", "-pc_type", "mg"], ("B1",)),
+        (["-ksp_type", "richardson", "-pc_type", "mg", "-ksp_max_it", "20"], ("B1",)),
+        (["-ksp_type", "bcgs", "-mat_type", "dia"], ("B3",)),
+        # BASELINE config 1: the 64 x 64-element grid, MINRES, block Jacobi
+        (["-problem_type", "saddle", "-body_force", "trig", "-da_grid_x", "65", "-da_grid_y", "65",
+          "-ksp_type", "minres", "-pc_type", "fieldsplit", "-fieldsplit_inner_pc_type", "bjacobi"], ("B1",)),
+        # BASELINE config 3's solver on the 256 x 256-element grid
+        (["-problem_type", "saddle", "-body_force", "trig", "-ksp_type", "fgmres", "-pc_type", "fieldsplit",
+          "-fieldsplit_inner_ksp_type", "cg", "-fieldsplit_inner_pc_type", "mg"], ("B1",)),
+    ]
+    for extra, kernels in runs:
+        t0 = time.perf_counter()
+        run, counts = _cli(g257 + ["-log_view"] + extra, kernels)
+        t_setup, t_solve = (run.log.phases[p].total_s for p in ("PCSetUp", "KSPSolve"))
+        print(f"  PCSetUp {t_setup:.3f} s, KSPSolve {t_solve:.4f} s, "
+              f"{t_solve / max(run.result.iterations, 1) * 1e3:.3f} ms/it; whole run {time.perf_counter() - t0:.2f} s")
+
+
 def main():
     t_start = time.perf_counter()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -948,8 +1198,8 @@ def main():
 
     max_err, timings = phase_kernel(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_f64(tmp)
-        phase_f32(tmp)
+        launches, minres_f64 = phase_f64(tmp)
+        minres_f32 = phase_f32(tmp)
         sparse_err, sparse_timings = phase_sparse_kernels(dev, card)
         phase_formats(tmp)
         gamg_counts, level_err, gamg_run = phase_gamg(dev)
@@ -959,6 +1209,11 @@ def main():
         b2_launches = phase_mat_solve_stencil(dev)
         phase_mat_solve_dia(dev, gamg_run)
         b6_launches = phase_mat_solve_dia_f32(dev, gamg_run, spmm_timings["B6", torch.float32]["ms"])
+        del gamg_run
+        phase_mg(dev)
+        phase_saddle_mg(minres_f32[1025])
+        phase_refine(dev, minres_f64)
+        phase_sweep()
 
     def row(name, source, replaces, launches, err, numbers):
         return {

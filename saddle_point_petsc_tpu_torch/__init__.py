@@ -4,12 +4,16 @@ Each module here is the twin of the module of the same name in the JAX
 package (`saddle_point_petsc_tpu`), which stays the numerical reference.
 This package imports `torch` and never `jax`.
 
-Ported so far: the serial saddle-point (KKT) main path on the stencil
-operator — Q1 FEM assembly (models/fem.py, models/poisson.py,
-models/saddle.py), the stencil operator (ops/stencil.py) with its
-hand-written CUDA SpMV kernel (ops/cuda/spmv.py, csrc/stencil_spmv.cu),
-the KKT operator, Jacobi and Schur preconditioners, CG/MINRES/GMRES/FGMRES,
-the KSP driver, monitors, viewers, VTK output and the CLI.
+Ported so far: the serial saddle-point (KKT) solve on the stencil
+operator and the general-sparse route. Q1 FEM assembly (models/), the
+stencil, CSR/BSR/ELL/DIA/block-DIA operators (ops/) with hand-written CUDA
+kernels for every TPU kernel of the JAX package (ops/cuda/, csrc/), the
+KKT operator, every serial preconditioner but ILU(0) (solvers/precond.py:
+Jacobi, point-block and block Jacobi, red-black SOR, Chebyshev, fieldsplit,
+Schur, inner KSP), geometric multigrid (solvers/multigrid.py), smoothed
+aggregation AMG (solvers/amg.py), every Krylov solver (solvers/krylov.py),
+mixed-precision refinement (solvers/refine.py), the KSP object, monitors,
+viewers, VTK output and the CLI.
 
 A tensor on the CPU goes through each kernel's plain PyTorch version; a
 tensor on a CUDA device goes through the kernel.

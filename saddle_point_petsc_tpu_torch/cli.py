@@ -3,6 +3,8 @@
     python -m saddle_point_petsc_tpu_torch.cli -device cuda \
         -problem_type saddle -body_force trig -da_grid_x 257 -da_grid_y 257 \
         -ksp_rtol 1e-5 -ksp_converged_reason -log_view
+    python -m saddle_point_petsc_tpu_torch.cli -da_grid_x 257 -da_grid_y 257 \
+        -ksp_type cg -pc_type mg -ksp_rtol 1e-8 -ksp_converged_reason
 
 Flags follow the JAX CLI and PETSc:
   -device {cuda,cpu}              where to assemble and solve [cuda]; cuda
@@ -20,8 +22,10 @@ Flags follow the JAX CLI and PETSc:
                                   block-DIA (kernel B4); no effect on the
                                   saddle route
   -ksp_type/-pc_type/-ksp_rtol/-ksp_atol/-ksp_max_it/-ksp_monitor
-  -ksp_converged_reason           (see solvers/ksp.py for the full set,
-                                  -pc_type gamg among them)
+  -ksp_converged_reason           (see solvers/ksp.py for the full set:
+                                  every serial KSP and PC type of the JAX
+                                  package but -pc_type ilu, with -pc_type
+                                  mg, gamg and -fieldsplit_inner_ksp_type)
   -A_mat_view -f_vec_view -solution_view     object viewers
   -vtk <path>                     VTK output file [test.vtk]
   -no_vtk                         skip VTK output

@@ -586,9 +586,147 @@ def chebyshev_fixed(
     return KrylovResult(x, maxiter, rnorm, bnorm, hist, CONVERGED_ITS)
 
 
+# ---------------------------------------------------------------------------
+# Richardson / Chebyshev KSP / BiCGStab
+# ---------------------------------------------------------------------------
+
+def richardson(
+    A: Callable,
+    b,
+    M: Optional[Callable] = None,
+    x0=None,
+    scale=1.0,
+    rtol=1e-5,
+    atol=1e-50,
+    dtol=1e5,
+    maxiter=10,
+    monitor=False,
+):
+    """Damped Richardson iteration x += scale * M(b - A x), exactly
+    `maxiter` sweeps, as the JAX package runs it: there is no test inside
+    the loop, the reason judges the last residual. history[i + 1] is the
+    norm of the residual that sweep i corrected (history[1] ==
+    history[0]). The norms stay on the device until the loop ends; the
+    monitor flag is accepted and, as in the JAX package, prints nothing."""
+    M = M or _identity
+    x = tzeros_like(b) if x0 is None else x0
+    norms = [tnorm(tsub(b, A(x)))]
+    for _ in range(maxiter):
+        r = tsub(b, A(x))
+        x = taxpy(scale, M(r), x)
+        norms.append(tnorm(r))
+    bnorm, *history = torch.stack([tnorm(b)] + norms).tolist()
+    _, reason = _check_convergence(history[-1], bnorm, rtol, atol, dtol, maxiter, maxiter)
+    return _result(x, history, maxiter, bnorm, reason)
+
+
+def chebyshev(
+    A: Callable,
+    b,
+    M: Optional[Callable] = None,
+    x0=None,
+    lmin=0.1,
+    lmax=1.1,
+    rtol=1e-5,
+    atol=1e-50,
+    dtol=1e5,
+    maxiter=10000,
+    monitor=False,
+):
+    """Chebyshev iteration on bounds [lmin, lmax] of M A with PETSc's
+    convergence test on the true residual norm every iteration
+    (KSPCHEBYSHEV semantics): it stops at rtol instead of running maxiter
+    sweeps."""
+    M = M or _identity
+    x = tzeros_like(b) if x0 is None else x0
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma1 = theta / delta
+    r = tsub(b, A(x))
+    rnorm, bnorm = torch.stack([tnorm(r), tnorm(b)]).tolist()
+    history = [rnorm]
+    _monitor_print(monitor, 0, rnorm)
+    done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, 0, maxiter)
+    d, rho = None, 1.0
+    while not done:
+        z = M(r)
+        if d is None:  # first step: d = z / theta
+            rho = 1.0 / sigma1
+            d = tscale(1.0 / theta, z)
+        else:  # three-term recurrence
+            rho_new = 1.0 / (2.0 * sigma1 - rho)
+            d = tadd(tscale(rho_new * rho, d), tscale(2.0 * rho_new / delta, z))
+            rho = rho_new
+        x = tadd(x, d)
+        r = tsub(b, A(x))
+        rnorm = tnorm(r).item()
+        history.append(rnorm)
+        it = len(history) - 1
+        _monitor_print(monitor, it, rnorm)
+        done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, it, maxiter)
+    return _result(x, history, maxiter, bnorm, reason)
+
+
+def bcgs(
+    A: Callable,
+    b,
+    M: Optional[Callable] = None,
+    x0=None,
+    rtol=1e-5,
+    atol=1e-50,
+    dtol=1e5,
+    maxiter=10000,
+    monitor=False,
+):
+    """Preconditioned BiCGStab (PETSc KSPBCGS, right-preconditioned form)
+    for nonsymmetric systems: two matvecs and two PC applies per
+    iteration, tracking the true residual norm. A zero denominator is
+    replaced by the dtype's smallest normal number (`finfo.tiny`), as in
+    the JAX package; the scalars stay 0-d tensors on the device."""
+    M = M or _identity
+    x = tzeros_like(b) if x0 is None else x0
+    r = tsub(b, A(x))
+    r0hat = r
+    rnorm, bnorm = torch.stack([tnorm(r), tnorm(b)]).tolist()
+    history = [rnorm]
+    _monitor_print(monitor, 0, rnorm)
+    done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, 0, maxiter)
+    tiny = torch.finfo(_leaves(b)[0].dtype).tiny
+
+    def safe(t):
+        return torch.where(t == 0, tiny, t)
+
+    p = v = tzeros_like(b)
+    one = torch.ones((), dtype=_leaves(b)[0].dtype, device=_leaves(b)[0].device)
+    rho = alpha = omega = one
+    while not done:
+        rho_new = tdot(r0hat, r)
+        beta = (rho_new / safe(rho)) * (alpha / safe(omega))
+        p = taxpy(beta, taxpy(-omega, v, p), r)
+        phat = M(p)
+        v = A(phat)
+        alpha = rho_new / safe(tdot(r0hat, v))
+        sres = taxpy(-alpha, v, r)
+        shat = M(sres)
+        t = A(shat)
+        omega = tdot(t, sres) / safe(tdot(t, t))
+        x = taxpy(omega, shat, taxpy(alpha, phat, x))
+        r = taxpy(-omega, t, sres)
+        rho = rho_new
+        rnorm = tnorm(r).item()
+        history.append(rnorm)
+        it = len(history) - 1
+        _monitor_print(monitor, it, rnorm)
+        done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, it, maxiter)
+    return _result(x, history, maxiter, bnorm, reason)
+
+
 SOLVERS = {
     "cg": cg,
     "minres": minres,
     "gmres": gmres,
     "fgmres": fgmres,
+    "bcgs": bcgs,
+    "richardson": richardson,
+    "chebyshev": chebyshev,
 }

@@ -1,29 +1,41 @@
 """KSP: options-configured Krylov solve driver (PyTorch twin of
-`saddle_point_petsc_tpu.solvers.ksp`).
+`saddle_point_petsc_tpu.solvers.ksp`), serial.
 
 Supported options (prefix-scoped):
-  -ksp_type {cg,minres,gmres,fgmres}  [gmres]
+  -ksp_type {cg,minres,gmres,fgmres,bcgs,richardson,chebyshev}  [gmres]
   -ksp_rtol <r> [1e-5]   -ksp_atol <a> [1e-50]   -ksp_divtol <d> [1e5]
   -ksp_max_it <n> [10000]   -ksp_gmres_restart <m> [30]
   -ksp_norm_type {preconditioned,unpreconditioned,natural} (CG)
+  -ksp_chebyshev_eigenvalues <lmin>,<lmax>  (default: estimated, the
+                                  window (0.1, 1.1) * lambda_max(M A))
   -ksp_monitor   -ksp_converged_reason   -ksp_view
-  -pc_type {none,jacobi,gamg} on a stencil, CSR or DIA operator ({none,
-           jacobi} on block-DIA), {none,fieldsplit} on a SaddleOperator
-           [jacobi]
+  -pc_type {none,jacobi,pbjacobi,sor,bjacobi,chebyshev,fieldsplit,mg,gamg}
+           on a stencil operator (pbjacobi also on a BSR; bjacobi also on
+           a CSR; none, jacobi, gamg on CSR and DIA; none, jacobi on
+           block-DIA), {none,fieldsplit} on a SaddleOperator  [jacobi]
+  -pc_sor_omega <w> [1.0]   -pc_sor_its <k> [1]
+  -pc_bjacobi_blocks <n> [4]
+  -pc_chebyshev_lmin <a> [0.1]   -pc_chebyshev_lmax <b> [1.1]
+  -pc_chebyshev_its <k> [3]      -pc_chebyshev_esteig
+  -pc_mg_levels <n> [10]   -pc_mg_smoother {sor,sor-fb,chebyshev,jacobi} [sor]
+  -pc_mg_cycles <k> [1]  (mg: V-cycles per apply; gamg: 1 = V, 2 = W)
   -pc_gamg_threshold <t> [0.08]   -pc_gamg_coarse_eq_limit <n> [500]
-  -pc_mg_levels <n> [10]   -pc_mg_cycles {1,2} [1]   -pc_gamg_smooth_its <k> [2]
-  -pc_fieldsplit_type schur
+  -pc_gamg_smooth_its <k> [2]
+  -pc_fieldsplit_type {additive,multiplicative} on a stencil [additive];
+                      schur on the KKT system
   -pc_fieldsplit_schur_fact_type {diag,lower,upper,full}
-  -fieldsplit_inner_pc_type {jacobi,none,gamg}  (the Schur A-block solve)
+  -fieldsplit_inner_pc_type <any PC type above>  (the Schur A-block)
+  -fieldsplit_inner_ksp_type <ksp type>  (an inner KSP as the A-block
+      solve, KSPInnerPC; -fieldsplit_inner_ksp_rtol [1e-2],
+      -fieldsplit_inner_ksp_max_it [10])
 
 `KSP.mat_solve` (KSPMatSolve) solves for a batch of k right-hand sides
 with the pseudo-block CG (-ksp_type cg only, as in the JAX package) on a
-stencil, CSR or DIA operator with -pc_type none, jacobi or gamg.
+stencil, CSR or DIA operator; none and jacobi scale the whole batch, any
+other PC applies column by column.
 
-Other KSP and PC types of the JAX package (pbjacobi, sor, bjacobi, ilu,
-chebyshev, fieldsplit on the stencil, mg; bcgs, richardson, chebyshev)
-and an inner KSP (-fieldsplit_inner_ksp_type) raise NotImplementedError
-naming the ROADMAP.md item that ports them.
+-pc_type ilu raises NotImplementedError naming the ROADMAP.md item that
+ports it.
 """
 from __future__ import annotations
 
@@ -33,28 +45,17 @@ from typing import Any, Optional
 
 import torch
 
+from saddle_point_petsc_tpu_torch.ops import sparse as sp
 from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator
 from saddle_point_petsc_tpu_torch.solvers import krylov, precond
 from saddle_point_petsc_tpu_torch.solvers.amg import amg_pc
+from saddle_point_petsc_tpu_torch.solvers.multigrid import mg_pc
 from saddle_point_petsc_tpu_torch.solvers.operators import SaddleOperator
 from saddle_point_petsc_tpu_torch.utils.options import Options
 
-# PC and KSP types of the JAX package that this package does not have yet,
-# with the ROADMAP.md item that ports each.
-_PC_LATER = {
-    "pbjacobi": "A.11 (rest of precond.py)",
-    "sor": "A.11 (rest of precond.py)",
-    "bjacobi": "A.11 (rest of precond.py)",
-    "ilu": "A.11 (rest of precond.py, ilu_stencil.py)",
-    "chebyshev": "A.11 (rest of precond.py: the chebyshev PC type, estimate_lmax)",
-    "fieldsplit": "A.11 (rest of precond.py: fieldsplit on the stencil)",
-    "mg": "A.10 (multigrid.py)",
-}
-# inner PC types of the Schur A-block solve that this package has
-_INNER_PCS = ("jacobi", "none", "gamg")
-_KSP_LATER = {
-    t: "A.11 (rest of krylov.py)" for t in ("bcgs", "richardson", "chebyshev")
-}
+# PC types of the JAX package that this package does not have yet, with
+# the ROADMAP.md item that ports each.
+_PC_LATER = {"ilu": "A.27 (ILU(0): precond.ilu0 and ilu_stencil.py)"}
 
 
 def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
@@ -82,18 +83,15 @@ def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
         default_fact = "diag" if ksp_type in ("minres", "cg") else "full"
         fact = opts.get_str("pc_fieldsplit_schur_fact_type", default_fact)
         inner_type = opts.get_str("fieldsplit_inner_ksp_type", "none")
+        inner = make_pc(opts.get_str("fieldsplit_inner_pc_type", "jacobi"), A.A, opts)
         if inner_type != "none":
-            raise NotImplementedError(
-                f"-fieldsplit_inner_ksp_type {inner_type}: an inner KSP as the "
-                "Schur A-solve (KSPInnerPC) is ROADMAP.md A.11"
+            inner = precond.KSPInnerPC(
+                A.A,
+                inner,
+                solver=inner_type,
+                rtol=opts.get_float("fieldsplit_inner_ksp_rtol", 1e-2),
+                maxiter=opts.get_int("fieldsplit_inner_ksp_max_it", 10),
             )
-        inner_pc_type = opts.get_str("fieldsplit_inner_pc_type", "jacobi")
-        if inner_pc_type not in _INNER_PCS:
-            raise NotImplementedError(
-                f"-fieldsplit_inner_pc_type {inner_pc_type}: only "
-                f"{', '.join(_INNER_PCS)} are ported; the others are ROADMAP.md A.10-A.11"
-            )
-        inner = make_pc(inner_pc_type, A.A, opts)
         return precond.schur_pc(A.A, A.Bf, inner, fact_type=fact)
 
     if pc_type in _PC_LATER:
@@ -102,6 +100,39 @@ def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
         )
     if pc_type == "jacobi":
         return precond.jacobi(A)
+    if pc_type == "pbjacobi":
+        return precond.pbjacobi(A)
+    if pc_type == "sor":
+        if not isinstance(A, StencilOperator):
+            raise ValueError("sor PC requires a stencil operator")
+        return precond.sor(
+            A, omega=opts.get_float("pc_sor_omega", 1.0), sweeps=opts.get_int("pc_sor_its", 1)
+        )
+    if pc_type == "bjacobi":
+        nb = opts.get_int("pc_bjacobi_blocks", 4)
+        if isinstance(A, StencilOperator):
+            return precond.block_jacobi_stencil(A, nb)
+        if isinstance(A, sp.CSR):
+            return precond.block_jacobi(A, nb)
+        raise ValueError("bjacobi PC requires stencil or CSR operator")
+    if pc_type == "chebyshev":
+        lmin = opts.get_float("pc_chebyshev_lmin", 0.1)
+        lmax = opts.get_float("pc_chebyshev_lmax", 1.1)
+        if opts.get_bool("pc_chebyshev_esteig") and isinstance(A, StencilOperator):
+            # PETSc -pc_chebyshev_esteig: a power-iteration bound on
+            # lambda_max(D^-1 A), with the window (0.1, 1.1) * lmax
+            tmpl = torch.zeros((2, *A.grid_shape), dtype=A.planes.dtype, device=A.planes.device)
+            est = precond.estimate_lmax(A, M=precond.jacobi(A), template=tmpl)
+            lmin, lmax = 0.1 * 1.1 * est, 1.1 * est
+        return precond.chebyshev_pc(A, lmin=lmin, lmax=lmax, iters=opts.get_int("pc_chebyshev_its", 3))
+    if pc_type == "fieldsplit":
+        if not isinstance(A, StencilOperator):
+            raise ValueError("fieldsplit PC requires a stencil operator")
+        return precond.fieldsplit(A, fs_type=opts.get_str("pc_fieldsplit_type", "additive"))
+    if pc_type == "mg":
+        if not isinstance(A, StencilOperator):
+            raise ValueError("mg PC requires a stencil operator")
+        return mg_pc(A, opts)
     if pc_type == "gamg":
         # PCGAMG (smoothed aggregation) from the assembled matrix alone
         return amg_pc(A, opts)
@@ -192,7 +223,7 @@ class KSP:
         the others, whose batched product is `A.matmat` on the transposed
         view of the batch, without a copy (kernel B6 for a CUDA DIA). The
         elementwise PCs (none, jacobi) scale the whole batch at once, with
-        each column's bits; the others (gamg) apply column by column."""
+        each column's bits; the others apply column by column."""
         if self.ksp_type != "cg":
             raise ValueError(
                 "mat_solve implements the pseudo-block CG (KSPMatSolve) only; "
@@ -217,11 +248,6 @@ class KSP:
         )
 
     def solve(self, b, x0=None) -> krylov.KrylovResult:
-        if self.ksp_type in _KSP_LATER:
-            raise NotImplementedError(
-                f"-ksp_type {self.ksp_type} is not ported yet: "
-                f"ROADMAP.md {_KSP_LATER[self.ksp_type]}"
-            )
         if self.ksp_type not in krylov.SOLVERS:
             raise ValueError(f"unknown ksp_type {self.ksp_type!r}")
         if self.M is None:
@@ -242,6 +268,17 @@ class KSP:
             kwargs["restart"] = self.restart
         if self.ksp_type == "cg":
             kwargs["norm_type"] = self.norm_type
+        if self.ksp_type == "chebyshev":
+            # PETSc KSPCHEBYSHEV: the bounds (0.1, 1.1) * lambda_max(M A)
+            # from a power iteration, unless -ksp_chebyshev_eigenvalues
+            # lmin,lmax gives them
+            ev = o.get_str("ksp_chebyshev_eigenvalues", "")
+            if ev:
+                lmin, lmax = (float(t) for t in ev.split(","))
+            else:
+                est = precond.estimate_lmax(self.A, M=self.M, template=b)
+                lmin, lmax = 0.1 * est, 1.1 * est
+            kwargs["lmin"], kwargs["lmax"] = lmin, lmax
         res = krylov.SOLVERS[self.ksp_type](self.A, b, **kwargs)
         if o.get_bool("ksp_converged_reason"):
             word = "CONVERGED" if res.converged_reason > 0 else "DIVERGED"

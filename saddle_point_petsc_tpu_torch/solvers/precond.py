@@ -1,28 +1,41 @@
-"""Preconditioners, main-path subset (PyTorch twin of
-`saddle_point_petsc_tpu.solvers.precond`).
+"""Preconditioners (PyTorch twin of `saddle_point_petsc_tpu.solvers.precond`).
 
-IdentityPC, JacobiPC/jacobi (stencil, CSR, DIA, block-DIA), inv_small,
-ChebyshevPC/chebyshev_pc (the gamg smoother) and the fieldsplit Schur
-preconditioner SchurPC/schur_pc for the KKT system. Each PC is a frozen
-dataclass holding tensors, with `__call__(r) -> z` over the same vector
-structure the Krylov solvers use (a tensor or a tuple of tensors). The
-rest of the JAX module (point-block and block Jacobi, ILU(0), SOR,
-estimate_lmax, fieldsplit on the stencil, inner KSP) is still to be
-ported; see ROADMAP.md queue A.
+Every serial PC of the JAX module except ILU(0): IdentityPC, JacobiPC
+(stencil, CSR, DIA, block-DIA), PBJacobiPC (point-block Jacobi, stencil
+and BSR), BlockJacobiPC (host dense inverses of row blocks applied as one
+batched product), RedBlackSORPC (red-black block SOR on the stencil),
+ChebyshevPC, `estimate_lmax` (power iteration for Chebyshev bounds),
+FieldSplitPC over the two velocity components, the Schur fieldsplit
+SchurPC for the KKT system, and KSPInnerPC (an inner Krylov solve as a
+PC). Each PC is a frozen dataclass holding tensors, with `__call__(r) ->
+z` over the vector structure the Krylov solvers use (a tensor or a tuple
+of tensors). Every stencil matvec goes through `StencilOperator`, so on a
+CUDA device it launches kernel B1. ILU(0) is still to be ported; see
+ROADMAP.md queue A.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from saddle_point_petsc_tpu_torch.ops import sparse as sp
+from saddle_point_petsc_tpu_torch.ops.stencil import (
+    StencilOperator,
+    field_to_flat,
+    flat_to_field,
+    stencil_to_coo,
+)
+from saddle_point_petsc_tpu_torch.solvers import krylov
 from saddle_point_petsc_tpu_torch.solvers.krylov import chebyshev_iterate
 from saddle_point_petsc_tpu_torch.solvers.operators import (
     constraint_apply,
     constraint_apply_t,
 )
+from saddle_point_petsc_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,3 +168,321 @@ def schur_pc(A, Bf, inner_solve=None, fact_type="full") -> SchurPC:
     if inner_solve is None:
         inner_solve = JacobiPC(dinv)
     return SchurPC(inner_solve, Bf, inv_small(S), fact_type)
+
+
+# ---------------------------------------------------------------------------
+# Point-block Jacobi
+# ---------------------------------------------------------------------------
+
+
+def block_apply_field(inv_blocks, r):
+    """z[c] = sum_d inv_blocks[y, x, c, d] * r[d, y, x]: (ny, nx, b, b)
+    blocks on a dof-major (b, ny, nx) field, elementwise."""
+    return (inv_blocks.permute(2, 3, 0, 1) * r[None]).sum(1)
+
+
+@dataclasses.dataclass(frozen=True)
+class PBJacobiPC:
+    """Point-block Jacobi: the inverted dof x dof diagonal blocks (PETSc
+    PCPBJACOBI), natural for the 2-dof interleaved layout."""
+
+    inv_blocks: torch.Tensor  # (ny, nx, b, b) for a stencil, (mb, b, b) for a BSR
+
+    def __call__(self, r):
+        b = self.inv_blocks.shape[-1]
+        if r.ndim == 1:  # natural interleaved flat vector
+            ib = self.inv_blocks.reshape(-1, b, b)
+            return (ib * r.reshape(-1, 1, b)).sum(-1).reshape(-1)
+        if r.ndim == 3 and r.shape[0] == b:  # dof-major (b, ny, nx) field
+            return block_apply_field(self.inv_blocks, r)
+        return (self.inv_blocks * r[..., None, :]).sum(-1)
+
+
+def pbjacobi(A) -> PBJacobiPC:
+    """Point-block Jacobi of a stencil operator or a BSR."""
+    if isinstance(A, StencilOperator):
+        return PBJacobiPC(inv_small(A.diag_blocks()))
+    if isinstance(A, sp.BSR):
+        return PBJacobiPC(inv_small(sp.bsr_extract_diag_blocks(A)))
+    raise TypeError(f"pbjacobi: unsupported operator {type(A)}")
+
+
+# ---------------------------------------------------------------------------
+# Domain block-Jacobi with dense sub-solves
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockJacobiPC:
+    """Contiguous row blocks, each solved exactly by a precomputed dense
+    inverse, applied as one batched (nb, bs, bs) x (nb, bs) product (PETSc
+    PCBJACOBI with an exact sub-solve). The inverses are computed on the
+    host at setup."""
+
+    inv: torch.Tensor  # (nb, bs, bs) dense block inverses
+    n: int  # true vector length (the last block is padded)
+
+    def __call__(self, r):
+        shape = r.shape
+        field = r.ndim == 3 and shape[0] == 2
+        # a dof-major field goes to the natural flat ordering of the rows
+        # the blocks were cut from
+        flat = field_to_flat(r) if field else r.reshape(-1)
+        nb, bs, _ = self.inv.shape
+        rp = F.pad(flat, (0, nb * bs - self.n)).reshape(nb, bs, 1)
+        z = torch.bmm(self.inv, rp).reshape(-1)[: self.n]
+        return flat_to_field(z, shape[1], shape[2]) if field else z.reshape(shape)
+
+
+def block_jacobi(A, nblocks=4, max_block=4096, device=None) -> BlockJacobiPC:
+    """Host setup: cut nblocks equal diagonal blocks (the last padded with
+    identity) and invert them with numpy.
+
+    A: a CSR, a scipy sparse matrix, or a dense numpy array or tensor. The
+    inverses go to A's device (a CSR's or tensor's), else to `device`
+    (None: the CUDA card). With more blocks than rows need (nblocks * bs -
+    n >= bs), the trailing blocks hold padding alone and are identity; the
+    JAX function raises there. Blocks are capped at `max_block` rows, raising
+    the block count as needed: a dense inverse is O(bs^2) memory and
+    O(bs^3) setup (PETSc's PCBJACOBI likewise picks the count under
+    PETSC_DECIDE).
+    """
+    import scipy.sparse as sps
+
+    if isinstance(A, sp.CSR):
+        a, device = sp.csr_to_scipy(A), A.vals.device
+    elif isinstance(A, torch.Tensor):
+        a, device = A.detach().cpu().numpy(), A.device
+    else:
+        a, device = A, resolve_device(device)
+    if sps.issparse(a):
+        a = a.tocsr()
+
+        def get(lo, hi):
+            return a[lo:hi, lo:hi].toarray()
+    else:
+        a = np.asarray(a)
+
+        def get(lo, hi):
+            return a[lo:hi, lo:hi]
+
+    n = a.shape[0]
+    nblocks = max(nblocks, -(-n // max_block))
+    bs = -(-n // nblocks)
+    blocks = np.zeros((nblocks, bs, bs), a.dtype)
+    for k in range(nblocks):
+        lo, hi = k * bs, min((k + 1) * bs, n)
+        m = max(hi - lo, 0)  # trailing blocks may hold padding alone
+        if m:
+            blocks[k, :m, :m] = get(lo, hi)
+        if m < bs:
+            blocks[k, m:, m:] = np.eye(bs - m)
+    return BlockJacobiPC(torch.tensor(np.linalg.inv(blocks), device=device), n)
+
+
+def block_jacobi_stencil(op: StencilOperator, nblocks=4) -> BlockJacobiPC:
+    """Block-Jacobi over row strips of a stencil operator (host setup), in
+    the planes' dtype and on their device."""
+    import scipy.sparse as sps
+
+    rows, cols, vals = stencil_to_coo(op.W)
+    keep = rows >= 0  # drop out-of-grid padding
+    a = sps.csr_matrix((vals[keep], (rows[keep], cols[keep])), shape=op.shape)
+    return block_jacobi(a, nblocks, device=op.planes.device)
+
+
+# ---------------------------------------------------------------------------
+# Red-black SOR (structured grids)
+# ---------------------------------------------------------------------------
+
+_SOR_ORDERS = ("symmetric", "forward", "backward")
+
+
+@dataclasses.dataclass(frozen=True)
+class RedBlackSORPC:
+    """Red-black block Gauss-Seidel/SOR on a stencil operator.
+
+    The 9-point stencil couples each node only to the other colour of the
+    (i + j) 2-colouring in its 5-point part; with the full box stencil the
+    colouring is approximate Gauss-Seidel, still an effective smoother.
+    Each half-sweep is a whole-grid stencil matvec (kernel B1 on a CUDA
+    device), a point-block solve and a colour-masked update: no sequential
+    dependence.
+
+    order: "symmetric" (red, black, black, red: a symmetric PC, valid
+    under CG/MINRES; 4 matvecs a sweep), "forward" (red, black) or
+    "backward" (black, red), 2 matvecs a sweep. A V-cycle with forward
+    pre- and backward post-smoothing is symmetric as a whole
+    (solvers/multigrid.py, smoother "sor-fb"). The colour masks are built
+    once, at construction.
+    """
+
+    op: StencilOperator
+    inv_blocks: torch.Tensor  # (ny, nx, 2, 2)
+    omega: float = 1.0
+    sweeps: int = 1
+    order: str = "symmetric"
+    colors: tuple = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        if self.order not in _SOR_ORDERS:
+            raise ValueError(f"sor order {self.order!r}: use one of {_SOR_ORDERS}")
+        ny, nx = self.op.grid_shape
+        dev = self.op.planes.device
+        j = torch.arange(ny, device=dev)[:, None]
+        i = torch.arange(nx, device=dev)[None, :]
+        red = ((i + j) % 2 == 0)[None]
+        black = ~red
+        colors = {
+            "symmetric": (red, black, black, red),
+            "forward": (red, black),
+            "backward": (black, red),
+        }[self.order]
+        object.__setattr__(self, "colors", colors)  # frozen: set once, here
+
+    def __call__(self, r):
+        flat = r.ndim == 1
+        if flat:
+            r = flat_to_field(r, *self.op.grid_shape)
+        z = torch.zeros_like(r)
+        for _ in range(self.sweeps):
+            for mask in self.colors:
+                dz = block_apply_field(self.inv_blocks, r - self.op.matvec_field(z))
+                z = z + self.omega * torch.where(mask, dz, 0.0)
+        return field_to_flat(z) if flat else z
+
+
+def sor(op: StencilOperator, omega=1.0, sweeps=1, order="symmetric") -> RedBlackSORPC:
+    return RedBlackSORPC(op, inv_small(op.diag_blocks()), omega, sweeps, order)
+
+
+# ---------------------------------------------------------------------------
+# Spectral bound for Chebyshev
+# ---------------------------------------------------------------------------
+
+
+def _start_vector(template, generator):
+    """The power iteration's start: standard normal draws shaped like
+    `template` (a tensor or a tuple of tensors), drawn on the CPU from
+    `generator` and moved to the template's device, so that a CPU and a
+    CUDA build of the same operator start from the same vector."""
+
+    def draw(a):
+        return torch.randn(a.shape, generator=generator, dtype=a.dtype).to(a.device)
+
+    return tuple(draw(a) for a in template) if isinstance(template, tuple) else draw(template)
+
+
+def estimate_lmax(A, M=None, iters=10, generator=None, template=None):
+    """Power-iteration estimate of lambda_max(M A) for Chebyshev bounds, as
+    a Python float.
+
+    `template` gives the vector structure, shape and dtype; the start
+    vector comes from `_start_vector` with `generator`, a CPU
+    torch.Generator (default: one seeded with 0), where the JAX function
+    takes a PRNG key. The loop stays on the device and syncs once, at the
+    end.
+    """
+    if template is None:
+        raise ValueError("need a template vector")
+    M = M or IdentityPC()
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    v = _start_vector(template, generator)
+    lam = None
+    for _ in range(iters):
+        w = M(A(v))
+        lam = krylov.tnorm(w)
+        v = krylov.tscale(1.0 / lam, w)
+    return 1.0 if lam is None else lam.item()
+
+
+# ---------------------------------------------------------------------------
+# FieldSplit over the velocity components (stencil)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ScalarStencilOp:
+    """Scalar 9-point stencil operator for one (c, d) dof block, in the
+    planes layout (3, 3, ny, nx): one plane group of
+    StencilOperator.planes. Its matvec is nine shifted multiply-adds in
+    plain PyTorch (in the JAX package, XLA operations)."""
+
+    Ws: torch.Tensor  # (3, 3, ny, nx)
+
+    def __call__(self, x):
+        ny, nx = self.Ws.shape[-2:]
+        xp = F.pad(x, (1, 1, 1, 1))
+        y = torch.zeros_like(x)
+        for dj in range(3):
+            for di in range(3):
+                y = y + self.Ws[dj, di] * xp[dj : dj + ny, di : di + nx]
+        return y
+
+    def diagonal(self):
+        return self.Ws[1, 1]
+
+
+_FS_TYPES = ("additive", "multiplicative")
+
+
+@dataclasses.dataclass(frozen=True)
+class FieldSplitPC:
+    """Additive or multiplicative fieldsplit over the two velocity
+    components of the interleaved-dof layout (PETSc PCFIELDSPLIT with
+    DMDA field names). "additive" is block-diagonal; "multiplicative" is
+    block Gauss-Seidel over the fields, applying the A10 coupling."""
+
+    A10: ScalarStencilOp  # field 1 rows, field 0 columns
+    sub0: Any  # PC of the field-0 block
+    sub1: Any
+    fs_type: str = "additive"
+
+    def __post_init__(self):
+        if self.fs_type not in _FS_TYPES:
+            raise ValueError(f"fieldsplit type {self.fs_type!r}: use one of {_FS_TYPES}")
+
+    def __call__(self, r):
+        flat = r.ndim == 1
+        if flat:
+            r = flat_to_field(r, *self.A10.Ws.shape[-2:])
+        r0, r1 = r[0], r[1]
+        z0 = self.sub0(r0)
+        if self.fs_type == "multiplicative":
+            r1 = r1 - self.A10(z0)
+        z = torch.stack([z0, self.sub1(r1)])
+        return field_to_flat(z) if flat else z
+
+
+def fieldsplit(op: StencilOperator, sub="jacobi", fs_type="additive") -> FieldSplitPC:
+    if sub != "jacobi":
+        raise ValueError(f"fieldsplit sub-PC {sub!r} unsupported")
+    subs = [jacobi(ScalarStencilOp(op.planes[3 * c])) for c in range(2)]  # (c, c) blocks
+    return FieldSplitPC(ScalarStencilOp(op.planes[2]), subs[0], subs[1], fs_type)
+
+
+# ---------------------------------------------------------------------------
+# Inner KSP as a PC (FGMRES, Schur A-block solves)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class KSPInnerPC:
+    """An inner Krylov solve as a (generally nonlinear) PC, for FGMRES.
+    solver: a name in krylov.SOLVERS; tolerance and iteration cap fixed at
+    construction."""
+
+    A: Any
+    M: Any
+    solver: str = "cg"
+    rtol: float = 1e-2
+    maxiter: int = 10
+
+    def __post_init__(self):
+        if self.solver not in krylov.SOLVERS:
+            raise ValueError(f"unknown inner ksp_type {self.solver!r}")
+
+    def __call__(self, r):
+        fn = krylov.SOLVERS[self.solver]
+        return fn(self.A, r, M=self.M, rtol=self.rtol, maxiter=self.maxiter).x

@@ -27,6 +27,7 @@ from saddle_point_petsc_tpu.utils.viewers import view_from_options as jview
 from saddle_point_petsc_tpu_torch import cli as tcli
 from saddle_point_petsc_tpu_torch.models import poisson as tpoisson
 from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator
+from saddle_point_petsc_tpu_torch.solvers import precond as tpc
 from saddle_point_petsc_tpu_torch.utils import vtk as tvtk
 from saddle_point_petsc_tpu_torch.utils.options import Options
 from saddle_point_petsc_tpu_torch.utils.viewers import view_from_options as tview
@@ -36,6 +37,18 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
 SUMMARY = re.compile(r"^(\w+: grid .*), rnorm=(\S+)$", re.M)
 REASON = re.compile(r"^Linear solve .*$", re.M)
+
+
+def _jax_draw(template, generator):
+    """The JAX package's estimate_lmax start vector (PRNGKey(0))."""
+    import jax
+    import jax.numpy as jnp
+
+    def draw(a):
+        v = jax.random.normal(jax.random.PRNGKey(0), tuple(a.shape), jnp.float64)
+        return torch.tensor(np.asarray(v), dtype=a.dtype)
+
+    return tuple(draw(a) for a in template) if isinstance(template, tuple) else draw(template)
 
 
 def _vtk_parts(path):
@@ -66,11 +79,33 @@ _CG = ["-ksp_type", "cg", "-ksp_rtol", "1e-8"]
         _G17 + ["-pc_type", "gamg"] + _CG,  # gamg from the stencil operator
         _G17 + ["-problem_type", "saddle", "-body_force", "trig",
                 "-fieldsplit_inner_pc_type", "gamg", "-ksp_rtol", "1e-8"],
+        _G17 + ["-pc_type", "mg"] + _CG,  # the JAX README's first quick-start line
+        _G17 + ["-pc_type", "mg", "-pc_mg_smoother", "chebyshev", "-pc_mg_cycles", "2"] + _CG,
+        _G17 + ["-ksp_type", "bcgs", "-pc_type", "sor", "-pc_sor_omega", "1.2", "-ksp_rtol", "1e-8"],
+        _G17 + ["-ksp_type", "richardson", "-pc_type", "mg", "-ksp_max_it", "20"],
+        _G17 + ["-ksp_type", "chebyshev", "-pc_type", "pbjacobi", "-ksp_rtol", "1e-8"],
+        _G17 + ["-pc_type", "fieldsplit", "-pc_fieldsplit_type", "multiplicative", "-ksp_rtol", "1e-8"],
+        _G17 + ["-pc_type", "chebyshev", "-pc_chebyshev_esteig"] + _CG,
+        _G17 + ["-pc_type", "bjacobi", "-pc_bjacobi_blocks", "3"] + _CG,
+        _G17 + ["-problem_type", "saddle", "-body_force", "trig", "-ksp_type", "fgmres",
+                "-pc_type", "fieldsplit", "-pc_fieldsplit_schur_fact_type", "full",
+                "-fieldsplit_inner_pc_type", "mg", "-pc_mg_smoother", "chebyshev", "-ksp_rtol", "1e-8"],
+        _G17 + ["-problem_type", "saddle", "-body_force", "trig", "-ksp_type", "fgmres",
+                "-pc_type", "fieldsplit", "-fieldsplit_inner_ksp_type", "cg",
+                "-fieldsplit_inner_pc_type", "mg", "-ksp_rtol", "1e-8"],
+        ["-da_grid_x", "17", "-da_grid_y", "13", "-problem_type", "saddle", "-body_force", "trig",
+         "-ksp_type", "minres", "-fieldsplit_inner_pc_type", "bjacobi", "-ksp_rtol", "1e-8"],
     ],
     ids=["saddle9", "default", "aij17", "dia17", "bdia17", "dia17-gamg",
-         "aij17-gmres-gamg", "stencil17-gamg", "saddle17-gamg"],
+         "aij17-gmres-gamg", "stencil17-gamg", "saddle17-gamg", "mg17", "mg17-chebyshev-w",
+         "bcgs17-sor", "richardson17-mg", "chebyshev17-pbjacobi", "fieldsplit17-mult",
+         "chebyshev-pc17-esteig", "bjacobi17", "saddle17-fgmres-mg", "saddle17-inner-cg-mg",
+         "saddle17x13-minres-bjacobi"],
 )
-def test_cli_matches_jax(tmp_path, capsys, args):
+def test_cli_matches_jax(tmp_path, capsys, monkeypatch, args):
+    # estimate_lmax (the chebyshev smoother, -pc_chebyshev_esteig, the
+    # chebyshev KSP) starts from the JAX package's draw
+    monkeypatch.setattr(tpc, "_start_vector", _jax_draw)
     args = args + ["-ksp_converged_reason"]
     jpath, tpath = tmp_path / "jax.vtk", tmp_path / "torch.vtk"
     assert jcli.main(args + ["-vtk", str(jpath)]) == 0
@@ -151,11 +186,11 @@ def test_device_cuda_without_card_raises(argv):
         ["-dist"],
         ["-mesh", "2,2"],
         ["-mat_type", "aij", "-dist"],
-        ["-pc_type", "mg"],
+        ["-mat_type", "aij", "-pc_type", "ilu"],
         ["-profile", "trace"],
         ["-pc_type", "ilu"],
-        ["-ksp_type", "bcgs"],
-        ["-problem_type", "saddle", "-fieldsplit_inner_ksp_type", "cg"],
+        ["-mat_type", "dia", "-pc_type", "ilu"],
+        ["-problem_type", "saddle", "-fieldsplit_inner_pc_type", "ilu"],
     ],
 )
 def test_later_slices_raise_not_implemented(extra):

@@ -15,6 +15,9 @@ B3, B4, B5 and B6 round every product and sum as their plain versions
 do, in the same order, and B2 sums as B1 does; all are held to the same
 bounds as B1. KSPMatSolve on the card against the CPU: iterations +-1
 (batched dot products reduce in another order on the card), x to 1e-9.
+Multigrid, SOR and one refinement cycle on the card against the same call
+on CPU tensors: 1e-12 * max|y| in f64, 1e-5 * max|y| in f32 (the V-cycle
+and the refinement's inner solve run in f32).
 """
 import random
 
@@ -26,7 +29,7 @@ from saddle_point_petsc_tpu_torch.models import poisson
 from saddle_point_petsc_tpu_torch.ops import sparse
 from saddle_point_petsc_tpu_torch.ops.cuda import bdia, dia, dia_spmm, ell, spmm, spmv
 from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator
-from saddle_point_petsc_tpu_torch.solvers import amg
+from saddle_point_petsc_tpu_torch.solvers import amg, multigrid, precond, refine
 from saddle_point_petsc_tpu_torch.solvers.ksp import KSP
 from saddle_point_petsc_tpu_torch.utils.options import Options
 
@@ -313,3 +316,64 @@ def test_gamg_on_card_launches_ell_kernel(dev):
     y = ell_lvl(x)
     assert ell.launches == 1
     assert _within(y, ell.ell_spmv_plain(ell_lvl.ell.cols_t, ell_lvl.ell.vals_t, x), 1e-12)
+
+
+_F32_F64 = [(torch.float32, 1e-5), (torch.float64, 1e-12)]
+
+
+@pytest.mark.parametrize("smoother", ["chebyshev", "sor"])
+@pytest.mark.parametrize("dtype,tol", _F32_F64)
+def test_vcycle_on_card_matches_cpu(dev, dtype, tol, smoother):
+    """The MG V-cycle on 33^2 nodes (three levels and a 5^2 coarsest) built
+    and applied on the card, against the same on the CPU: B1 launches on
+    the card, none on the CPU."""
+    A = poisson.assemble_poisson(32, 32, dtype=dtype, device=dev, body_force="trig").A
+    A_cpu = StencilOperator(A.planes.cpu())
+    r = torch.randn((2, 33, 33), dtype=dtype, device=dev)
+    M = multigrid.mg_pc(A, smoother=smoother)
+    spmv.reset_launches()
+    z = M(r)
+    assert spmv.launches >= 2 * len(M.levels)
+    spmv.reset_launches()
+    z_cpu = multigrid.mg_pc(A_cpu, smoother=smoother)(r.cpu())
+    assert spmv.launches == 0
+    assert _within(z.cpu(), z_cpu, tol)
+
+
+@pytest.mark.parametrize("order", ["symmetric", "forward"])
+@pytest.mark.parametrize("dtype,tol", _F32_F64)
+def test_sor_on_card_matches_cpu(dev, dtype, tol, order):
+    A = poisson.assemble_poisson(20, 13, dtype=dtype, device=dev, body_force="trig").A
+    r = torch.randn((2, 14, 21), dtype=dtype, device=dev)
+    spmv.reset_launches()
+    z = precond.sor(A, sweeps=2, order=order)(r)
+    assert spmv.launches == 2 * (4 if order == "symmetric" else 2)
+    spmv.reset_launches()
+    z_cpu = precond.sor(StencilOperator(A.planes.cpu()), sweeps=2, order=order)(r.cpu())
+    assert spmv.launches == 0
+    assert _within(z.cpu(), z_cpu, tol)
+
+
+def test_refinement_cycle_on_card_matches_cpu(dev):
+    """One refinement cycle (solve_refined) on the 17^2 Poisson system: the
+    f64 residual through B1 in f64 (to 1e-12), then an f32 correction of
+    exactly ten Jacobi-CG iterations (to 1e-5 of max|x|; a solve to a
+    tolerance could stop an iteration apart on the two devices)."""
+    prob = poisson.assemble_poisson(16, 16, dtype=torch.float64, device=dev, body_force="trig")
+    out = []
+    for device in (dev, torch.device("cpu")):
+        planes = prob.A.planes.to(device)
+        A32 = StencilOperator(planes.float())
+        spmv.reset_launches()
+        res = refine.solve_refined(A32, prob.f.to(device), refine.inner_cg(A32, M=precond.jacobi(A32), rtol=0.0,
+                                                                            maxiter=10), max_cycles=1)
+        out.append((res, spmv.launches))
+    (card, n_card), (host, n_host) = out
+    assert n_card > card.inner_iterations == 10 and n_host == 0
+    assert card.cycles == host.cycles == 1 and card.x.dtype == torch.float64
+    assert _within(card.x.cpu(), host.x, 1e-5)
+    # the f64 residual of the same x on both devices
+    A64 = StencilOperator(prob.A.planes)
+    r_card = prob.f - A64(card.x)
+    r_host = prob.f.cpu() - StencilOperator(prob.A.planes.cpu())(card.x.cpu())
+    assert _within(r_card.cpu(), r_host, 1e-12)
