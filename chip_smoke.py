@@ -92,6 +92,22 @@ Phases (each passes or raises; the script exits non-zero on any failure):
     BASELINE config 1 (65^2 nodes, MINRES, Schur with a block-Jacobi
     A-block) and config 3's solver (257^2, FGMRES, Schur with an inner CG
     + MG A-block solve), f64 to rtol 1e-8.
+19. ILU(0) on the card. The native host library must have loaded. At
+    257^2 f64: stencil_ilu0's factors (Lp, Up, invd) built from the
+    card's planes against the same from CPU planes, one apply on the card
+    against the CPU in f64 and f32 with exactly 12 B1 launches (6 sweeps);
+    the CLI to rtol 1e-8 with CG + ILU on the stencil and on -mat_type
+    aij (iterations against each other and against the CPU's run of the
+    same command), GMRES + ILU, and the saddle route with FGMRES +
+    Schur(upper, ILU); a CG + ILU solve stopped at rtol 1e-4, saved
+    through the host (utils/checkpoint.py), loaded back onto the card and
+    resumed to 1e-8 in fewer iterations than the cold solve. At 65^2 f64
+    the CSR's exact level-scheduled solves (-pc_ilu_sweeps 0) against the
+    CPU and CG + ILU(exact) through the CLI. At 1025^2 f32 GMRES + ILU
+    (-ksp_max_it 3000) on the stencil: iterations, reason, PCSetUp (the
+    host factorization) and KSPSolve seconds, B1 launches per iteration
+    and the f64 true residual beside phase 9's CG + Jacobi; it must end
+    in neither NaN nor DIVERGED_DTOL.
 
 Each kernel's timing runs in the order plain, kernel, library, library,
 kernel, plain (medians of 60 launches each) and prints the kernel's
@@ -128,9 +144,10 @@ from saddle_point_petsc_tpu_torch.ops import sparse
 from saddle_point_petsc_tpu_torch.ops.cuda import _build, bdia, dia, dia_spmm, ell, spmm, spmv
 from saddle_point_petsc_tpu_torch.models import saddle
 from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator, field_to_flat
-from saddle_point_petsc_tpu_torch.solvers import amg, krylov, multigrid, precond, refine
+from saddle_point_petsc_tpu_torch.solvers import amg, ilu_stencil, krylov, multigrid, precond, refine
 from saddle_point_petsc_tpu_torch.solvers.ksp import KSP
 from saddle_point_petsc_tpu_torch.solvers.operators import SaddleOperator
+from saddle_point_petsc_tpu_torch.utils import checkpoint, native
 from saddle_point_petsc_tpu_torch.utils.options import Options
 
 # (nx, ny) nodes: ragged small grids up to 1025^2, the main path's 256^2 and 257^2 among them
@@ -634,7 +651,7 @@ def phase_bdia_full():
     t = run.log.phases["KSPSolve"].total_s
     its = run.result.iterations
     print(f"1025^2 f32 block-DIA CG+Jacobi: {its} its, {t:.4f} s, {t / its * 1e3:.4f} ms/it")
-    return counts["B4"]
+    return counts["B4"], {"its": its, "solve_s": t}
 
 
 def phase_saddle_gamg():
@@ -1177,6 +1194,141 @@ def phase_sweep():
               f"{t_solve / max(run.result.iterations, 1) * 1e3:.3f} ms/it; whole run {time.perf_counter() - t0:.2f} s")
 
 
+def _phases(run):
+    """(PCSetUp s, KSPSolve s, ms per iteration) of a CLI run."""
+    t_setup, t_solve = (run.log.phases[p].total_s for p in ("PCSetUp", "KSPSolve"))
+    return t_setup, t_solve, t_solve / max(run.result.iterations, 1) * 1e3
+
+
+def _ilu_apply_check(label, M, M_cpu, r, dtype, launches):
+    """One apply on the card against the CPU's, with exactly `launches` B1
+    launches; returns its host milliseconds (the median of 5 in a row)."""
+    _reset_counts()
+    z = M(r)
+    torch.cuda.synchronize()
+    if not z.is_cuda:
+        raise AssertionError(f"{label}: the apply left the card")
+    if spmv.launches != launches:
+        raise AssertionError(f"{label}: {spmv.launches} B1 launches per apply, expected {launches}")
+    err = _compare(f"{label} apply on the card against the CPU", z.cpu(), M_cpu(r.cpu()), dtype)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        M(r)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"  {label}: {launches} B1 launches per apply, {statistics.median(times):.3f} ms per apply "
+          f"(host clock), max|dz| {err:.3e}")
+    return statistics.median(times)
+
+
+def phase_ilu(dev, tmp, jacobi_1025):
+    """Phase 19: ILU(0) on the card (host factorization, B1 sweeps, the
+    level-scheduled exact solves, checkpoint and resume)."""
+    if not native.available():
+        raise AssertionError("the native host library did not load (ILU(0) would take minutes in Python)")
+    n, f64 = 257, torch.float64
+    A = poisson.assemble_poisson(n - 1, n - 1, dtype=f64, device=dev, body_force="trig").A
+    A_cpu = StencilOperator(A.planes.cpu())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    M = ilu_stencil.stencil_ilu0(A, sweeps=6)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    M_cpu = ilu_stencil.stencil_ilu0(A_cpu, sweeps=6)
+    for name in ("Lp", "Up", "invd"):
+        _compare(f"ILU {n}^2 {name} built on the card against the CPU", getattr(M, name).cpu(),
+                 getattr(M_cpu, name), f64)
+    print(f"{n}^2 f64 stencil_ilu0 (sweeps 6): setup {t_setup:.3f} s (native factorization)")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    r = torch.randn((2, n, n), generator=gen, dtype=f64, device=dev)
+    _ilu_apply_check(f"StencilILU0PC {n}^2 f64", M, M_cpu, r, f64, 12)
+    A32 = StencilOperator(A.planes.float())
+    _ilu_apply_check(f"StencilILU0PC {n}^2 f32", ilu_stencil.stencil_ilu0(A32, sweeps=6),
+                     ilu_stencil.stencil_ilu0(StencilOperator(A32.planes.cpu()), sweeps=6), r.float(),
+                     torch.float32, 12)
+
+    # the CLI at 257^2 f64 to rtol 1e-8
+    g257 = ["-dtype", "f64", "-da_grid_x", str(n), "-da_grid_y", str(n), "-ksp_rtol", "1e-8",
+            "-ksp_converged_reason", "-log_view", "-no_vtk"]
+    cg_ilu = g257 + ["-ksp_type", "cg", "-pc_type", "ilu"]
+    its = {}
+    for label, argv, kernels in (
+        ("CG + ILU, stencil", cg_ilu, ("B1",)),
+        ("CG + ILU, -mat_type aij", cg_ilu + ["-mat_type", "aij"], ()),
+        ("GMRES + ILU, stencil", g257 + ["-ksp_type", "gmres", "-pc_type", "ilu"], ("B1",)),
+        ("FGMRES + Schur(upper, ILU), saddle", g257 + [
+            "-problem_type", "saddle", "-body_force", "trig", "-ksp_type", "fgmres", "-pc_type", "fieldsplit",
+            "-pc_fieldsplit_schur_fact_type", "upper", "-fieldsplit_inner_pc_type", "ilu"], ("B1",)),
+    ):
+        run, counts = _cli(["-device", "cuda"] + argv, kernels)
+        t_setup, t_solve, ms = _phases(run)
+        its[label] = run.result.iterations
+        print(f"  {n}^2 f64 {label}: {its[label]} its, PCSetUp {t_setup:.3f} s, KSPSolve {t_solve:.4f} s, "
+              f"{ms:.3f} ms/it, B1 launches {counts['B1']} ({counts['B1'] / its[label]:.1f} per iteration)")
+        if label == "CG + ILU, stencil":
+            cold = run
+    t0 = time.perf_counter()
+    host = cli.run(["-device", "cpu"] + cg_ilu)
+    t_host = time.perf_counter() - t0
+    its["CG + ILU, stencil, CPU"] = host.result.iterations
+    print(f"  {n}^2 f64 CG + ILU iterations: {its}; the CPU run {host.result.reason_name()} in {t_host:.2f} s "
+          f"(KSPSolve {_phases(host)[1]:.3f} s)")
+    if not (host.rc == 0 and abs(its["CG + ILU, stencil"] - its["CG + ILU, -mat_type aij"]) <= 2
+            and abs(its["CG + ILU, stencil"] - host.result.iterations) <= 2):
+        raise AssertionError(f"CG + ILU iteration counts disagree: {its}")
+
+    # checkpoint: a CG + ILU solve stopped at rtol 1e-4 on the card, saved
+    # through the host, loaded back onto the card and resumed to 1e-8
+    prob, M = cold.problem, cold.ksp.M
+    partial = krylov.cg(prob.A, prob.f, M=M, rtol=1e-4, maxiter=10000)
+    path = checkpoint.save_solver_state(os.path.join(tmp, "cg_ilu_1e-4.npz"), partial, meta={"rtol": 1e-4})
+    back = checkpoint.load_like(path, partial)
+    if not (back.x.is_cuda and torch.equal(back.x, partial.x)):
+        raise AssertionError("the checkpointed iterate did not come back to the card unchanged")
+    resumed = checkpoint.resume_solve(krylov.cg, prob.A, prob.f, path, partial, M=M, rtol=1e-8, maxiter=10000)
+    print(f"  checkpoint: CG + ILU to 1e-4 in {partial.iterations} its, saved and reloaded onto the card, "
+          f"resumed to 1e-8 in {resumed.iterations} its ({resumed.reason_name()}) against "
+          f"{cold.result.iterations} cold")
+    if resumed.reason_name() != "CONVERGED_RTOL" or not resumed.iterations < cold.result.iterations:
+        raise AssertionError(f"resume: {resumed.reason_name()} in {resumed.iterations} its")
+    del cold, host, prob, M, A, A32, M_cpu
+
+    # the exact path (-mat_type aij -pc_ilu_sweeps 0) at 65^2 f64
+    M0 = precond.ilu0(poisson.assemble_poisson_csr(64, 64, dtype=f64, device=dev)[0], sweeps=0)
+    M0_cpu = precond.ilu0(poisson.assemble_poisson_csr(64, 64, dtype=f64, device="cpu")[0], sweeps=0)
+    ms0 = _ilu_apply_check(f"exact ILU(0) 65^2 f64 ({M0.lower.levels} + {M0.upper.levels} levels)", M0, M0_cpu,
+                           torch.randn((2, 65, 65), generator=gen, dtype=f64, device=dev), f64, 0)
+    run, counts = _cli(["-device", "cuda", "-dtype", "f64", "-da_grid_x", "65", "-da_grid_y", "65", "-mat_type",
+                        "aij", "-ksp_type", "cg", "-pc_type", "ilu", "-pc_ilu_sweeps", "0", "-ksp_rtol", "1e-8",
+                        "-ksp_converged_reason", "-log_view", "-no_vtk"], kernels=())
+    t_setup, t_solve, ms = _phases(run)
+    print(f"  65^2 f64 CG + ILU(exact): {run.result.iterations} its, PCSetUp {t_setup:.3f} s, KSPSolve "
+          f"{t_solve:.4f} s, {ms:.3f} ms/it ({ms0:.3f} ms per PC apply)")
+
+    # the full size: 1025^2 f32 GMRES + ILU on the stencil
+    argv = ["-device", "cuda", "-dtype", "f32", "-da_grid_x", "1025", "-da_grid_y", "1025", "-ksp_type", "gmres",
+            "-pc_type", "ilu", "-ksp_rtol", "1e-5", "-ksp_max_it", "3000", "-ksp_converged_reason", "-log_view",
+            "-no_vtk"]
+    print("$ python -m saddle_point_petsc_tpu_torch.cli " + " ".join(argv), flush=True)
+    _reset_counts()
+    run = cli.run(argv)
+    b1 = spmv.launches
+    res, prob = run.result, run.problem
+    t_setup, t_solve, ms = _phases(run)
+    planes64 = prob.A.planes.double()
+    x64 = res.x.double()
+    true_rel = ((prob.f.double() - spmv.planes_matvec_field(planes64, x64)).norm() / prob.f.double().norm()).item()
+    print(f"  1025^2 f32 GMRES + ILU: {res.iterations} its, {res.reason_name()}, PCSetUp {t_setup:.3f} s (host "
+          f"factorization of {prob.A.n} rows), KSPSolve {t_solve:.4f} s, {ms:.3f} ms/it, B1 launches {b1} "
+          f"({b1 / max(res.iterations, 1):.1f} per iteration), true residual {true_rel:.3e} (f64); phase 9's CG + "
+          f"Jacobi (block-DIA): {jacobi_1025['its']} its, {jacobi_1025['solve_s']:.4f} s "
+          f"({jacobi_1025['solve_s'] / jacobi_1025['its'] * 1e3:.4f} ms/it)")
+    if res.reason_name() in ("DIVERGED_DTOL", "DIVERGED_NANORINF") or not np.isfinite(true_rel):
+        raise AssertionError(f"1025^2 GMRES + ILU: {res.reason_name()}, true residual {true_rel}")
+
+
 def main():
     t_start = time.perf_counter()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1203,7 +1355,7 @@ def main():
         sparse_err, sparse_timings = phase_sparse_kernels(dev, card)
         phase_formats(tmp)
         gamg_counts, level_err, gamg_run = phase_gamg(dev)
-        b4_launches = phase_bdia_full()
+        b4_launches, jacobi_1025 = phase_bdia_full()
         phase_saddle_gamg()
         spmm_err, spmm_timings = phase_spmm_kernels(dev, card, gamg_run)
         b2_launches = phase_mat_solve_stencil(dev)
@@ -1214,6 +1366,9 @@ def main():
         phase_saddle_mg(minres_f32[1025])
         phase_refine(dev, minres_f64)
         phase_sweep()
+        t0 = time.perf_counter()
+        phase_ilu(dev, tmp, jacobi_1025)
+        print(f"phase 19: {time.perf_counter() - t0:.1f} s")
 
     def row(name, source, replaces, launches, err, numbers):
         return {

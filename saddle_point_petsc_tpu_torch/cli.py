@@ -9,6 +9,7 @@
 Flags follow the JAX CLI and PETSc:
   -device {cuda,cpu}              where to assemble and solve [cuda]; cuda
                                   without a CUDA device raises
+  -use_cpu                        the same as -device cpu
   -dtype {f32,f64}                [f64 on the CPU, f32 on a CUDA device]
   -da_grid_x/-da_grid_y <nodes>   grid node counts [4, i.e. 3x3 elements]
   -problem_type {poisson,saddle}  poisson = vector Laplace (GMRES/Jacobi by
@@ -24,22 +25,28 @@ Flags follow the JAX CLI and PETSc:
   -ksp_type/-pc_type/-ksp_rtol/-ksp_atol/-ksp_max_it/-ksp_monitor
   -ksp_converged_reason           (see solvers/ksp.py for the full set:
                                   every serial KSP and PC type of the JAX
-                                  package but -pc_type ilu, with -pc_type
-                                  mg, gamg and -fieldsplit_inner_ksp_type)
+                                  package, with -pc_type mg, gamg, ilu
+                                  (-pc_ilu_sweeps) and
+                                  -fieldsplit_inner_ksp_type)
   -A_mat_view -f_vec_view -solution_view     object viewers
   -vtk <path>                     VTK output file [test.vtk]
   -no_vtk                         skip VTK output
   -log_view                       phase timing report
+  -profile <dir>                  torch.profiler trace of the KSPSolve
+                                  phase (CPU activity, and CUDA activity
+                                  on the card) as a Chrome trace in <dir>
   -options_left                   warn about unused options
 
--dist (with or without -mat_type), -mesh and -profile belong to later
-slices of the port and raise NotImplementedError. -mat_stencil_backend,
+-dist (with or without -mat_type) and -mesh belong to later slices of the
+port and raise NotImplementedError. -mat_stencil_backend,
 -mat_dia_backend and -mat_bdia_backend are not read: a tensor's device
 picks plain version or kernel, and -options_left reports them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import sys
 from typing import Any
 
@@ -70,6 +77,8 @@ class CliRun:
 
 def _device(opts):
     name = opts.get_str("device", "cuda")
+    if opts.get_bool("use_cpu"):  # the JAX CLI's flag for the CPU
+        name = "cpu"
     if name != "cpu" and name.split(":")[0] != "cuda":
         raise ValueError(f"-device {name}: use cuda or cpu")
     return resolve_device(name)
@@ -93,8 +102,25 @@ def _refuse_later_slices(opts):
             "-dist/-mesh: the distributed operators (and MATMPIAIJ for "
             "-mat_type aij -dist) are ROADMAP.md A.18-A.24"
         )
-    if opts.has("profile"):
-        raise NotImplementedError("-profile: device tracing is ROADMAP.md A.9")
+
+
+@contextlib.contextmanager
+def _profiled(trace_dir, device):
+    """torch.profiler around the block (CPU activity, and CUDA activity on
+    the card), written as a Chrome trace into trace_dir; nothing when
+    trace_dir is empty."""
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(trace_dir, "kspsolve.pt.trace.json"))
 
 
 def run(argv=None) -> CliRun:
@@ -155,7 +181,7 @@ def run(argv=None) -> CliRun:
     with log.phase("PCSetUp"):
         ksp.set_up()
         monitor.synchronize(prob.f)  # waits for the whole device
-    with log.phase("KSPSolve"):
+    with _profiled(opts.get_str("profile", ""), device), log.phase("KSPSolve"):
         res = ksp.solve(b)
         monitor.synchronize(res.x)
 

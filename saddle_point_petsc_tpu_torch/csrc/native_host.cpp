@@ -1,22 +1,71 @@
-// Native host kernels of the PyTorch port: setup-time graph work that is
-// too slow in Python at a million rows.
+// Native host kernels of the PyTorch port: setup-time work that is too
+// slow in Python at a million rows.
+//   - sptpu_ilu0: ILU(0) factorization on CSR (-pc_type ilu's PCSetUp)
 //   - sptpu_rcm: reverse Cuthill-McKee ordering (csr_to_dia's RCM option)
 //   - sptpu_aggregate: greedy standard aggregation (gamg's PCSetUp)
 //
-// Copies of the two functions of the same names in the JAX package's
+// Copies of the functions of the same names in the JAX package's
 // saddle_point_petsc_tpu/csrc/sptpu_native.cpp, so that the port builds
-// and loads nothing of that package; tests/test_torch_utils.py holds the
-// two to the same arrays. Host code, not device kernels.
+// and loads nothing of that package; tests/test_torch_utils.py and
+// tests/test_torch_ilu.py hold them to the same arrays. Host code, not
+// device kernels.
 //
 // Built at first use by saddle_point_petsc_tpu_torch/utils/native.py:
 //   g++ -O3 -std=c++17 -shared -fPIC -o <out> native_host.cpp
 // and loaded through ctypes; every caller keeps a numpy/scipy fallback.
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <vector>
 
 extern "C" {
+
+// ILU(0): in-place IKJ factorization restricted to the sparsity pattern.
+// indptr/indices: CSR structure (column indices sorted within each row);
+// data: values, overwritten with L (strict lower, unit diagonal implicit)
+// and U (upper with the diagonal). Returns 0 on success, else row + 1 of
+// a missing structural diagonal or of a zero pivot.
+int64_t sptpu_ilu0(int64_t n, const int32_t* indptr, const int32_t* indices,
+                   double* data) {
+  std::vector<int32_t> diag(n, -1);
+  for (int64_t i = 0; i < n; ++i) {
+    for (int32_t p = indptr[i]; p < indptr[i + 1]; ++p) {
+      if (indices[p] == i) {
+        diag[i] = p;
+        break;
+      }
+    }
+    if (diag[i] < 0) return i + 1;  // missing structural diagonal
+  }
+  // workspace: position of column j in the current row (or -1)
+  std::vector<int32_t> pos(n, -1);
+  for (int64_t i = 0; i < n; ++i) {
+    const int32_t row_beg = indptr[i], row_end = indptr[i + 1];
+    for (int32_t p = row_beg; p < row_end; ++p) pos[indices[p]] = p;
+    for (int32_t kk = row_beg; kk < row_end; ++kk) {
+      const int32_t k = indices[kk];
+      if (k >= i) break;
+      const double akk = data[diag[k]];
+      if (akk == 0.0) {
+        for (int32_t p = row_beg; p < row_end; ++p) pos[indices[p]] = -1;
+        return k + 1;
+      }
+      const double lik = data[kk] / akk;
+      data[kk] = lik;
+      // a_ij -= l_ik * u_kj for j > k within the pattern of row i, as one
+      // fused multiply-add: the JAX package's build (-march=native) contracts
+      // it so on any host with FMA, and std::fma rounds it so on every host
+      for (int32_t pp = diag[k] + 1; pp < indptr[k + 1]; ++pp) {
+        const int32_t j = indices[pp];
+        const int32_t pj = pos[j];
+        if (pj >= 0) data[pj] = std::fma(-lik, data[pp], data[pj]);
+      }
+    }
+    for (int32_t p = row_beg; p < row_end; ++p) pos[indices[p]] = -1;
+  }
+  return 0;
+}
 
 // Reverse Cuthill-McKee ordering (bandwidth reduction). indptr/indices:
 // CSR structure of a symmetric pattern. perm (out, length n).

@@ -9,10 +9,13 @@ Supported options (prefix-scoped):
   -ksp_chebyshev_eigenvalues <lmin>,<lmax>  (default: estimated, the
                                   window (0.1, 1.1) * lambda_max(M A))
   -ksp_monitor   -ksp_converged_reason   -ksp_view
-  -pc_type {none,jacobi,pbjacobi,sor,bjacobi,chebyshev,fieldsplit,mg,gamg}
-           on a stencil operator (pbjacobi also on a BSR; bjacobi also on
-           a CSR; none, jacobi, gamg on CSR and DIA; none, jacobi on
-           block-DIA), {none,fieldsplit} on a SaddleOperator  [jacobi]
+  -pc_type {none,jacobi,pbjacobi,sor,bjacobi,ilu,chebyshev,fieldsplit,mg,
+           gamg} on a stencil operator (pbjacobi also on a BSR; bjacobi and
+           ilu also on a CSR; none, jacobi, gamg on CSR and DIA; none,
+           jacobi on block-DIA), {none,fieldsplit} on a SaddleOperator
+           [jacobi]
+  -pc_ilu_sweeps <k> [6]  (0: on a CSR the exact triangular solves,
+           level-scheduled; on a stencil D^-1 alone, as in the JAX package)
   -pc_sor_omega <w> [1.0]   -pc_sor_its <k> [1]
   -pc_bjacobi_blocks <n> [4]
   -pc_chebyshev_lmin <a> [0.1]   -pc_chebyshev_lmax <b> [1.1]
@@ -33,9 +36,6 @@ Supported options (prefix-scoped):
 with the pseudo-block CG (-ksp_type cg only, as in the JAX package) on a
 stencil, CSR or DIA operator; none and jacobi scale the whole batch, any
 other PC applies column by column.
-
--pc_type ilu raises NotImplementedError naming the ROADMAP.md item that
-ports it.
 """
 from __future__ import annotations
 
@@ -49,13 +49,10 @@ from saddle_point_petsc_tpu_torch.ops import sparse as sp
 from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator
 from saddle_point_petsc_tpu_torch.solvers import krylov, precond
 from saddle_point_petsc_tpu_torch.solvers.amg import amg_pc
+from saddle_point_petsc_tpu_torch.solvers.ilu_stencil import stencil_ilu0
 from saddle_point_petsc_tpu_torch.solvers.multigrid import mg_pc
 from saddle_point_petsc_tpu_torch.solvers.operators import SaddleOperator
 from saddle_point_petsc_tpu_torch.utils.options import Options
-
-# PC types of the JAX package that this package does not have yet, with
-# the ROADMAP.md item that ports each.
-_PC_LATER = {"ilu": "A.27 (ILU(0): precond.ilu0 and ilu_stencil.py)"}
 
 
 def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
@@ -94,10 +91,6 @@ def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
             )
         return precond.schur_pc(A.A, A.Bf, inner, fact_type=fact)
 
-    if pc_type in _PC_LATER:
-        raise NotImplementedError(
-            f"-pc_type {pc_type} is not ported yet: ROADMAP.md {_PC_LATER[pc_type]}"
-        )
     if pc_type == "jacobi":
         return precond.jacobi(A)
     if pc_type == "pbjacobi":
@@ -115,6 +108,14 @@ def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
         if isinstance(A, sp.CSR):
             return precond.block_jacobi(A, nb)
         raise ValueError("bjacobi PC requires stencil or CSR operator")
+    if pc_type == "ilu":
+        sweeps = opts.get_int("pc_ilu_sweeps", 6)
+        if isinstance(A, StencilOperator):
+            # factors in stencil form: every sweep a stencil matvec (B1)
+            return stencil_ilu0(A, sweeps=sweeps)
+        if isinstance(A, sp.CSR):
+            return precond.ilu0(A, sweeps=sweeps)
+        raise ValueError("ilu PC requires stencil or CSR operator")
     if pc_type == "chebyshev":
         lmin = opts.get_float("pc_chebyshev_lmin", 0.1)
         lmax = opts.get_float("pc_chebyshev_lmax", 1.1)

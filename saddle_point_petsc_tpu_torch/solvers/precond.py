@@ -1,22 +1,24 @@
 """Preconditioners (PyTorch twin of `saddle_point_petsc_tpu.solvers.precond`).
 
-Every serial PC of the JAX module except ILU(0): IdentityPC, JacobiPC
-(stencil, CSR, DIA, block-DIA), PBJacobiPC (point-block Jacobi, stencil
-and BSR), BlockJacobiPC (host dense inverses of row blocks applied as one
-batched product), RedBlackSORPC (red-black block SOR on the stencil),
-ChebyshevPC, `estimate_lmax` (power iteration for Chebyshev bounds),
-FieldSplitPC over the two velocity components, the Schur fieldsplit
-SchurPC for the KKT system, and KSPInnerPC (an inner Krylov solve as a
-PC). Each PC is a frozen dataclass holding tensors, with `__call__(r) ->
-z` over the vector structure the Krylov solvers use (a tensor or a tuple
-of tensors). Every stencil matvec goes through `StencilOperator`, so on a
-CUDA device it launches kernel B1. ILU(0) is still to be ported; see
-ROADMAP.md queue A.
+Every serial PC of the JAX module: IdentityPC, JacobiPC (stencil, CSR,
+DIA, block-DIA), PBJacobiPC (point-block Jacobi, stencil and BSR),
+BlockJacobiPC (host dense inverses of row blocks applied as one batched
+product), ILU0PC (ILU(0) of a CSR: host factorization, device sweeps or
+level-scheduled exact solves), RedBlackSORPC (red-black block SOR on the
+stencil), ChebyshevPC, `estimate_lmax` (power iteration for Chebyshev
+bounds), FieldSplitPC over the two velocity components, the Schur
+fieldsplit SchurPC for the KKT system, and KSPInnerPC (an inner Krylov
+solve as a PC). Each PC is a frozen dataclass holding tensors, with
+`__call__(r) -> z` over the vector structure the Krylov solvers use (a
+tensor or a tuple of tensors). Every stencil matvec goes through
+`StencilOperator`, so on a CUDA device it launches kernel B1. The ILU(0)
+of a stencil operator, with its factors in the planes layout, is
+`solvers/ilu_stencil.py`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -289,6 +291,232 @@ def block_jacobi_stencil(op: StencilOperator, nblocks=4) -> BlockJacobiPC:
     keep = rows >= 0  # drop out-of-grid padding
     a = sps.csr_matrix((vals[keep], (rows[keep], cols[keep])), shape=op.shape)
     return block_jacobi(a, nblocks, device=op.planes.device)
+
+
+# ---------------------------------------------------------------------------
+# ILU(0)
+# ---------------------------------------------------------------------------
+
+def factor_values(indptr, indices, data, n):
+    """ILU(0) of a CSR with sorted column indices, on the host in f64: the
+    factored values in the same pattern, by the native library
+    (`utils/native.ilu0`) or, when it does not load, by `_ilu0_python`.
+
+    Raises ValueError on a missing diagonal (as the JAX package, whose
+    native call raises there and whose Python fallback names the row) and
+    ZeroDivisionError on a zero pivot (where the JAX package falls back to
+    its Python loop, which divides by zero and returns non-finite factors).
+    """
+    from saddle_point_petsc_tpu_torch.utils import native
+
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    has_diag = np.zeros(n, bool)
+    has_diag[rows[indices == rows]] = True
+    if not has_diag.all():
+        raise ValueError(f"ILU0: missing diagonal in row {int(np.argmin(has_diag))}")
+    try:
+        return native.ilu0(indptr, indices, data, n)
+    except native.NativeUnavailable:
+        return _ilu0_python(indptr, indices, np.array(data, dtype=np.float64), n)
+
+
+def _ilu0_python(indptr, indices, data, n):
+    """Reference ILU(0) in Python, in place on `data` (slow: the native
+    library is preferred). The JAX package's loop, plus the zero-pivot
+    check of the native code. Each update rounds its product and its
+    difference apart, where the native code fuses them, so the two differ
+    by ulps."""
+    diag_idx = np.zeros(n, np.int64)
+    colpos = {}
+    for i in range(n):
+        row = slice(indptr[i], indptr[i + 1])
+        cols = indices[row]
+        colpos[i] = {c: indptr[i] + k for k, c in enumerate(cols)}
+        d = colpos[i].get(i)
+        if d is None:
+            raise ValueError(f"ILU0: missing diagonal in row {i}")
+        diag_idx[i] = d
+    for i in range(n):
+        for kk in range(indptr[i], indptr[i + 1]):
+            k = indices[kk]
+            if k >= i:
+                break
+            akk = data[diag_idx[k]]
+            if akk == 0.0:
+                raise ZeroDivisionError(f"ILU(0): zero pivot at row {k}")
+            data[kk] /= akk
+            lik = data[kk]
+            rowk = colpos[k]
+            for jj in range(kk + 1, indptr[i + 1]):
+                j = indices[jj]
+                pos = rowk.get(j)
+                if pos is not None and j > k:
+                    data[jj] -= lik * data[pos]
+    return data
+
+
+def _factored(csr: sp.CSR):
+    """The ILU(0) factors of a CSR in one scipy CSR of f64 values (host)."""
+    import scipy.sparse as sps
+
+    a = sp.csr_to_scipy(csr).astype(np.float64)  # a copy
+    a.sort_indices()
+    data = factor_values(a.indptr, a.indices, a.data, a.shape[0])
+    return sps.csr_matrix((data, a.indices, a.indptr), shape=a.shape)
+
+
+def ilu0_factor_host(csr: sp.CSR):
+    """ILU(0) factorization on the host (setup time): the IKJ algorithm
+    restricted to A's pattern, in f64 (`factor_values`). Returns (L, U) as
+    CSRs on the CSR's device and in its dtype: L strictly lower (unit
+    diagonal implied), U upper with the diagonal."""
+    import scipy.sparse as sps
+
+    f = _factored(csr)
+    dev, dt = csr.vals.device, csr.vals.dtype
+    return (sp.scipy_to_csr(sps.tril(f, k=-1).tocsr(), device=dev, dtype=dt),
+            sp.scipy_to_csr(sps.triu(f, k=0).tocsr(), device=dev, dtype=dt))
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelSchedule:
+    """The rows of a strictly triangular factor grouped into levels for an
+    exact solve: a row's level is one more than the highest level among
+    the rows it depends on (0 for none), so the rows of one level depend
+    only on earlier levels and are solved together.
+
+    Rows are stored in level order with their ELL columns and values
+    (padding: column 0, value 0); level l is rows[bounds[l]:bounds[l+1]].
+    `scale` (the inverted diagonal for U, None for the unit-diagonal L) is
+    stored in the same order."""
+
+    rows: torch.Tensor  # (n,) int64
+    cols: torch.Tensor  # (n, k) int64
+    vals: torch.Tensor  # (n, k)
+    bounds: tuple  # Python ints, levels + 1 of them
+    scale: Optional[torch.Tensor] = None  # (n,)
+
+    @property
+    def levels(self):
+        return len(self.bounds) - 1
+
+    def solve(self, r):
+        """x with x[i] = scale[i] * (r[i] - sum_j T[i, j] x[j]): per level one
+        gather of x, one slot sum and one scatter, on r's device."""
+        x = torch.zeros_like(r)
+        rp = r[self.rows]
+        for a, b in zip(self.bounds[:-1], self.bounds[1:]):
+            v = rp[a:b] - (self.vals[a:b] * x[self.cols[a:b]]).sum(-1)
+            if self.scale is not None:
+                v = self.scale[a:b] * v
+            x[self.rows[a:b]] = v
+        return x
+
+
+def level_schedule(t, upper, device, dtype, scale=None) -> LevelSchedule:
+    """LevelSchedule of a strictly lower (upper=False) or strictly upper
+    scipy CSR `t` from its pattern (host, setup time; a Python loop over
+    the rows). `scale` is a tensor of the row count, or None."""
+    indptr, indices = t.indptr, t.indices
+    n = t.shape[0]
+    level = np.zeros(n, np.int64)
+    for i in range(n - 1, -1, -1) if upper else range(n):
+        s, e = indptr[i], indptr[i + 1]
+        if e > s:
+            level[i] = level[indices[s:e]].max() + 1
+    order = np.argsort(level, kind="stable")
+    bounds = np.searchsorted(level[order], np.arange(level.max(initial=-1) + 2))
+    counts = np.diff(indptr)
+    k = int(counts.max(initial=0))
+    rows = np.repeat(np.arange(n), counts)
+    slot = np.arange(len(indices)) - indptr[rows]
+    cols = np.zeros((n, k), np.int64)
+    vals = np.zeros((n, k))
+    cols[rows, slot] = indices
+    vals[rows, slot] = t.data
+    perm = torch.tensor(order, device=device)
+    return LevelSchedule(
+        perm,
+        torch.tensor(cols[order], device=device),
+        torch.tensor(vals[order], dtype=dtype, device=device),
+        tuple(int(b) for b in bounds),
+        None if scale is None else scale[perm],
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class ILU0PC:
+    """Apply z = U^{-1} L^{-1} r (PETSc PCILU, zero fill).
+
+    sweeps > 0: fixed-count Jacobi sweeps on each triangular factor, 2 x
+    sweeps CSR matvecs (`sp.csr_matvec`) and elementwise updates an apply;
+    approximate, exact as sweeps -> n.
+    sweeps == 0: the exact triangular solves, level by level
+    (`LevelSchedule.solve`, for validation and small systems): 5-6
+    launches a level on a CUDA device, and the level count of a natural
+    ordering grows with the grid, about 6 x the side for the 2-dof 9-point
+    stencil (L and U: 386 and 374 levels at 65^2 nodes, 1538 and 1526 at
+    257^2), so an apply is launch-bound (57 ms at 65^2 on an H100). The
+    JAX package scans over the rows one at a time.
+
+    Input: a flat vector in the CSR's row order, a dof-major (2, ny, nx)
+    field (taken to the natural interleaved ordering and back), or any
+    other shape (flattened and reshaped back).
+    """
+
+    L: sp.CSR  # strictly lower
+    U: sp.CSR  # strictly upper
+    inv_udiag: torch.Tensor  # (n,)
+    lower: Optional[LevelSchedule]  # the exact path's schedules (sweeps == 0)
+    upper: Optional[LevelSchedule]
+    sweeps: int = 6
+
+    def __call__(self, r):
+        field = None
+        if r.ndim == 3 and r.shape[0] == 2:
+            field = r.shape
+            r = field_to_flat(r)
+        elif r.ndim != 1:
+            field = ("reshape",) + tuple(r.shape)
+            r = r.reshape(-1)
+        if self.sweeps > 0:
+            # (I + L) y = r, unit diagonal: y <- r - L y
+            y = r
+            for _ in range(self.sweeps):
+                y = r - sp.csr_matvec(self.L, y)
+            # (D + U_strict) z = y: z <- Dinv * (y - U_strict z)
+            z = self.inv_udiag * y
+            for _ in range(self.sweeps):
+                z = self.inv_udiag * (y - sp.csr_matvec(self.U, z))
+            out = z
+        else:
+            out = self.upper.solve(self.lower.solve(r))
+        if field is None:
+            return out
+        if field[0] == "reshape":
+            return out.reshape(field[1:])
+        return flat_to_field(out, field[1], field[2])
+
+
+def ilu0(csr: sp.CSR, sweeps: int = 6) -> ILU0PC:
+    """ILU(0) preconditioner of a CSR: host factorization in f64; L, the
+    strictly upper U, the inverted diagonal of U and (sweeps == 0) the
+    level schedules on the CSR's device in its dtype."""
+    import scipy.sparse as sps
+
+    f = _factored(csr)
+    dev, dt = csr.vals.device, csr.vals.dtype
+    L = sps.tril(f, k=-1).tocsr()
+    Us = sps.triu(f, k=1).tocsr()
+    Us.eliminate_zeros()
+    ud = torch.tensor(f.diagonal(), dtype=dt, device=dev)
+    inv_ud = 1.0 / torch.where(ud == 0, 1.0, ud)
+    lower = upper = None
+    if sweeps == 0:
+        lower = level_schedule(L, False, dev, dt)
+        upper = level_schedule(Us, True, dev, dt, scale=inv_ud)
+    return ILU0PC(sp.scipy_to_csr(L, device=dev, dtype=dt), sp.scipy_to_csr(Us, device=dev, dtype=dt),
+                  inv_ud, lower, upper, sweeps)
 
 
 # ---------------------------------------------------------------------------

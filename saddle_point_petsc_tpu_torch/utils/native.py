@@ -1,5 +1,6 @@
 """ctypes bindings for the port's native host kernels (csrc/native_host.cpp):
-reverse Cuthill-McKee ordering and greedy aggregation.
+ILU(0) factorization, reverse Cuthill-McKee ordering and greedy
+aggregation.
 
 The library is built with g++ at first use into `csrc/_build/` (ignored by
 git), named by a hash of the source and the flags, under a file lock
@@ -48,6 +49,9 @@ def _lib():
         except (OSError, RuntimeError) as e:
             raise NativeUnavailable(f"native host library unavailable: {e}") from e
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+        lib.sptpu_ilu0.restype = ctypes.c_int64
+        lib.sptpu_ilu0.argtypes = [ctypes.c_int64, i32p, i32p, f64p]
         lib.sptpu_rcm.restype = None
         lib.sptpu_rcm.argtypes = [ctypes.c_int64, i32p, i32p, i32p]
         lib.sptpu_aggregate.restype = ctypes.c_int64
@@ -62,6 +66,29 @@ def available() -> bool:
         return True
     except NativeUnavailable:
         return False
+
+
+def ilu0(indptr, indices, data, n):
+    """ILU(0) of a CSR with sorted column indices: returns the factored f64
+    values (L strictly lower with a unit diagonal implied, U upper with the
+    diagonal, in the same pattern). indptr and indices may be int64; they
+    go to the library as int32. Raises ZeroDivisionError on a zero pivot
+    or a missing diagonal."""
+    lib = _lib()
+    if len(indptr) != n + 1 or indptr[-1] != len(indices) or len(data) != len(indices):
+        raise ValueError(f"ilu0: a CSR of {n} rows needs {n + 1} row pointers and one value per index")
+    if len(indices) >= 2**31:
+        raise ValueError(f"ilu0: {len(indices)} entries overflow the library's int32 indices")
+    data = np.array(data, dtype=np.float64, order="C")  # a copy, factored in place
+    rc = lib.sptpu_ilu0(
+        n,
+        np.ascontiguousarray(indptr, np.int32),
+        np.ascontiguousarray(indices, np.int32),
+        data,
+    )
+    if rc != 0:
+        raise ZeroDivisionError(f"ILU(0): zero pivot at row {rc - 1}")
+    return data
 
 
 def aggregate(indptr, indices, n):

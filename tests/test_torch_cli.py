@@ -186,16 +186,57 @@ def test_device_cuda_without_card_raises(argv):
         ["-dist"],
         ["-mesh", "2,2"],
         ["-mat_type", "aij", "-dist"],
-        ["-mat_type", "aij", "-pc_type", "ilu"],
-        ["-profile", "trace"],
-        ["-pc_type", "ilu"],
-        ["-mat_type", "dia", "-pc_type", "ilu"],
-        ["-problem_type", "saddle", "-fieldsplit_inner_pc_type", "ilu"],
     ],
 )
 def test_later_slices_raise_not_implemented(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main(["-device", "cpu", "-no_vtk"] + extra)
+
+
+ITS = re.compile(r"its=\d+, reason=\w+")
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [
+        ["-mat_type", "aij", "-pc_type", "ilu"],
+        ["-profile", "{tmp}"],
+        ["-pc_type", "ilu"],
+        ["-mat_type", "dia", "-pc_type", "ilu"],
+        ["-problem_type", "saddle", "-fieldsplit_inner_pc_type", "ilu"],
+        ["-use_cpu"],
+        ["-mat_type", "aij", "-pc_type", "ilu", "-pc_ilu_sweeps", "0", "-ksp_type", "cg"],
+        ["-pc_type", "ilu", "-pc_ilu_sweeps", "0", "-ksp_type", "cg"],
+    ],
+    ids=["aij-ilu", "profile", "stencil-ilu", "dia-ilu-raises", "saddle-inner-ilu", "use_cpu",
+         "aij-ilu-exact", "stencil-ilu-no-sweeps"],
+)
+def test_ilu_profile_use_cpu_match_jax(tmp_path, capsys, extra):
+    """The CLI routes that raised before ILU(0), -profile and -use_cpu were
+    ported, on the default 4x4-node grid: the its= line equals the JAX
+    CLI's, -mat_type dia -pc_type ilu raises ValueError in both, -profile
+    writes a trace and changes no result, and -use_cpu runs on the CPU in
+    f64 as the JAX CLI picks."""
+    extra = [a.replace("{tmp}", str(tmp_path / "trace")) for a in extra]
+    device = [] if extra == ["-use_cpu"] else ["-device", "cpu"]
+    argv = ["-no_vtk", "-ksp_converged_reason"] + device + extra
+    if "dia" in extra:
+        for main in (jcli.main, tcli.main):
+            with pytest.raises(ValueError, match="ilu PC requires stencil or CSR operator"):
+                main(argv)
+        return
+    assert jcli.main(argv) == 0
+    its_j = ITS.findall(capsys.readouterr().out)
+    run = tcli.run(argv)
+    its_t = ITS.findall(capsys.readouterr().out)
+    assert run.rc == 0 and its_t == its_j and len(its_t) == 1
+    x = run.result.x[0] if isinstance(run.result.x, tuple) else run.result.x
+    assert x.device.type == "cpu" and x.dtype == torch.float64
+    if "-profile" in extra:
+        assert (tmp_path / "trace" / "kspsolve.pt.trace.json").stat().st_size > 0
+        plain = tcli.run(argv[:-2])
+        assert ITS.findall(capsys.readouterr().out) == its_t
+        assert torch.equal(plain.result.x, run.result.x)
 
 
 @pytest.mark.parametrize(

@@ -15,9 +15,9 @@ B3, B4, B5 and B6 round every product and sum as their plain versions
 do, in the same order, and B2 sums as B1 does; all are held to the same
 bounds as B1. KSPMatSolve on the card against the CPU: iterations +-1
 (batched dot products reduce in another order on the card), x to 1e-9.
-Multigrid, SOR and one refinement cycle on the card against the same call
-on CPU tensors: 1e-12 * max|y| in f64, 1e-5 * max|y| in f32 (the V-cycle
-and the refinement's inner solve run in f32).
+Multigrid, SOR, ILU(0) and one refinement cycle on the card against the
+same call on CPU tensors: 1e-12 * max|y| in f64, 1e-5 * max|y| in f32 (the
+V-cycle and the refinement's inner solve run in f32).
 """
 import random
 
@@ -29,7 +29,7 @@ from saddle_point_petsc_tpu_torch.models import poisson
 from saddle_point_petsc_tpu_torch.ops import sparse
 from saddle_point_petsc_tpu_torch.ops.cuda import bdia, dia, dia_spmm, ell, spmm, spmv
 from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator
-from saddle_point_petsc_tpu_torch.solvers import amg, multigrid, precond, refine
+from saddle_point_petsc_tpu_torch.solvers import amg, ilu_stencil, multigrid, precond, refine
 from saddle_point_petsc_tpu_torch.solvers.ksp import KSP
 from saddle_point_petsc_tpu_torch.utils.options import Options
 
@@ -377,3 +377,29 @@ def test_refinement_cycle_on_card_matches_cpu(dev):
     r_card = prob.f - A64(card.x)
     r_host = prob.f.cpu() - StencilOperator(prob.A.planes.cpu())(card.x.cpu())
     assert _within(r_card.cpu(), r_host, 1e-12)
+
+
+@pytest.mark.parametrize("dtype,tol", _F32_F64)
+def test_stencil_ilu_on_card_matches_cpu(dev, dtype, tol):
+    """StencilILU0PC built and applied on the card against the same on the
+    CPU: exactly 12 B1 launches per apply at 6 sweeps (none on the CPU);
+    then the CSR's exact level-scheduled solves (sweeps 0) on the card."""
+    A = poisson.assemble_poisson(20, 13, dtype=dtype, device=dev, body_force="trig").A
+    A_cpu = StencilOperator(A.planes.cpu())
+    r = torch.randn((2, 14, 21), dtype=dtype, device=dev)
+    M = ilu_stencil.stencil_ilu0(A, sweeps=6)
+    assert M.Lp.is_cuda and M.Lp.dtype == dtype
+    spmv.reset_launches()
+    z = M(r)
+    assert spmv.launches == 12
+    spmv.reset_launches()
+    z_cpu = ilu_stencil.stencil_ilu0(A_cpu, sweeps=6)(r.cpu())
+    assert spmv.launches == 0
+    assert _within(z.cpu(), z_cpu, tol)
+    csr = poisson.assemble_poisson_csr(20, 13, dtype=dtype, device=dev)[0]
+    csr_cpu = poisson.assemble_poisson_csr(20, 13, dtype=dtype, device="cpu")[0]
+    M0 = precond.ilu0(csr, sweeps=0)
+    assert M0.lower.vals.is_cuda and M0.upper.scale.is_cuda
+    z0 = M0(r)
+    assert z0.is_cuda
+    assert _within(z0.cpu(), precond.ilu0(csr_cpu, sweeps=0)(r.cpu()), tol)

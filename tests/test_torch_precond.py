@@ -212,11 +212,11 @@ def test_make_pc_matches_jax(p17, jax_start, pc_type, opts):
 def test_make_pc_refuses(p17, csr_pair):
     _, tp = p17
     csr = csr_pair[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake_pc("ilu", tp.A)
     for pc_type in ("sor", "fieldsplit", "mg"):
         with pytest.raises(ValueError):
             tmake_pc(pc_type, csr)
     dia, _ = tsp.csr_to_dia(csr)
     with pytest.raises(ValueError):
         tmake_pc("bjacobi", dia)
+    with pytest.raises(ValueError, match="ilu PC requires stencil or CSR operator"):
+        tmake_pc("ilu", dia)
