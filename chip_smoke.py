@@ -108,6 +108,26 @@ Phases (each passes or raises; the script exits non-zero on any failure):
     host factorization) and KSPSolve seconds, B1 launches per iteration
     and the f64 true residual beside phase 9's CG + Jacobi; it must end
     in neither NaN nor DIVERGED_DTOL.
+20. The distributed stencil path in a world of one on NCCL (a FileStore
+    in a temporary directory; the group is destroyed at the end):
+    (d) at 704^2 f32, halo_exchange_1phase, halo_exchange and halo_add on
+    the card against zero padding and cropping, the distributed assembly
+    against the serial one, and both matvec forms (the operator's overlap
+    form, one field through `matmat_field`'s padded form) against the
+    serial B1 with exactly one launch of B1's local or padded entry, timed
+    beside the serial matvec; (a) BASELINE config 4 through the CLI:
+    -problem_type saddle -dist at 704^2 nodes (991,236 rows) f32 to rtol
+    1e-5, MINRES + Schur(diag) with the per-patch block-Jacobi A-block (4
+    Chebyshev iterations): iterations, reason, Assembly, PCSetUp and
+    KSPSolve seconds, ms per iteration, B1 launches per iteration by entry,
+    the f64 true relative residual; (b) the serial route at the same size
+    with the PC a 1 x 1 mesh reduces to (Chebyshev, -pc_chebyshev_esteig,
+    4 iterations): the same iteration count, x within 1e-6 relative, and
+    the ratio of ms per iteration (the cost of the distributed machinery
+    at world size 1; the routes run dist, serial, serial, dist and each
+    keeps its faster run); (c) GMRES at 257^2 f64 with -dist -pc_type bjacobi
+    -sub_pc_type ilu against the serial -pc_type ilu: the same count.
+    Multi-rank NCCL exchange needs more than one card and is not run.
 
 Each kernel's timing runs in the order plain, kernel, library, library,
 kernel, plain (medians of 60 launches each) and prints the kernel's
@@ -125,6 +145,7 @@ The last lines are the kernels JSON, the nvidia-smi line and
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import json
 import os
 import random
@@ -137,6 +158,8 @@ import time
 import numpy as np
 import scipy.sparse as sps
 import torch
+import torch.distributed as tdist
+import torch.nn.functional as F
 
 from saddle_point_petsc_tpu_torch import cli
 from saddle_point_petsc_tpu_torch.models import poisson
@@ -144,6 +167,9 @@ from saddle_point_petsc_tpu_torch.ops import sparse
 from saddle_point_petsc_tpu_torch.ops.cuda import _build, bdia, dia, dia_spmm, ell, spmm, spmv
 from saddle_point_petsc_tpu_torch.models import saddle
 from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator, field_to_flat
+from saddle_point_petsc_tpu_torch.parallel import dist as pdist
+from saddle_point_petsc_tpu_torch.parallel import halo
+from saddle_point_petsc_tpu_torch.parallel import mesh as pmesh
 from saddle_point_petsc_tpu_torch.solvers import amg, ilu_stencil, krylov, multigrid, precond, refine
 from saddle_point_petsc_tpu_torch.solvers.ksp import KSP
 from saddle_point_petsc_tpu_torch.solvers.operators import SaddleOperator
@@ -1329,6 +1355,118 @@ def phase_ilu(dev, tmp, jacobi_1025):
         raise AssertionError(f"1025^2 GMRES + ILU: {res.reason_name()}, true residual {true_rel}")
 
 
+DIST_GRID = 704  # BASELINE config 4: 704^2 nodes, 991,236 rows with the 4 constraint rows
+
+
+def _dist_functions(dev, mesh, card):
+    """Phase 20 (d): the halo and matvec functions on CUDA tensors."""
+    n, f32 = DIST_GRID, torch.float32
+    t0 = time.perf_counter()
+    A, f, _ = pdist.assemble_poisson_dist(pdist.DistGrid.create(n - 1, n - 1, mesh), dtype=f32, body_force="trig")
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    serial = poisson.assemble_poisson(n - 1, n - 1, dtype=f32, device=dev, body_force="trig")
+    if not (torch.equal(A.planes, serial.A.planes) and torch.equal(f, serial.f)):
+        raise AssertionError("the world-of-one assembly differs from the serial one")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    x = torch.randn((2, n, n), generator=gen, dtype=f32, device=dev)
+    xp = halo.halo_exchange_1phase(x, mesh)
+    if not (xp.is_cuda and torch.equal(xp, F.pad(x, (1, 1, 1, 1))) and torch.equal(halo.halo_exchange(x, mesh), xp)
+            and torch.equal(halo.halo_add(xp, mesh), x)):
+        raise AssertionError("halo exchange or halo_add disagrees with zero padding")
+    print(f"  {n}^2 f32: distributed assembly {t_asm:.3f} s, bit-equal to the serial one; halo_exchange_1phase, "
+          "halo_exchange and halo_add equal zero padding and cropping on the card")
+    ref = serial.A(x)
+    forms = {}
+    # the matvec (overlap form: B1's local entry) and one field through the
+    # SpMM (B1's padded entry on the exchanged patch)
+    for label, entry, op in (("overlap", "stencil_spmv", lambda: A(x)),
+                             ("padded", "stencil_spmv_padded", lambda: A.matmat_field(x[None])[0])):
+        _reset_counts()
+        y = op()
+        if spmv.launches != 1 or spmv.entry_launches[entry] != 1:
+            raise AssertionError(f"distributed matvec ({label} form): launches {spmv.entry_launches}")
+        _compare(f"distributed matvec, {label} form, against the serial B1", y, ref, f32)
+        forms[entry] = _median_ms(op)
+    t_serial = _median_ms(lambda: serial.A(x))
+    print(f"  {n}^2 f32 matvec device time (median of 60, CUDA events): serial B1 {t_serial * 1e3:.2f} us, "
+          f"distributed overlap form {forms['stencil_spmv'] * 1e3:.2f} us, padded form "
+          f"{forms['stencil_spmv_padded'] * 1e3:.2f} us ({card})")
+
+
+def phase_dist(dev, tmp, card):
+    """Phase 20: the distributed stencil path in a world of one on NCCL."""
+    tdist.init_process_group("nccl", store=tdist.FileStore(os.path.join(tmp, "nccl_store"), 1), rank=0,
+                             world_size=1, device_id=dev, timeout=datetime.timedelta(seconds=300))
+    try:
+        if tdist.get_backend() != "nccl":
+            raise AssertionError(f"backend {tdist.get_backend()}, not nccl")
+        mesh = pmesh.ProcessMesh.create(device=dev)
+        _dist_functions(dev, mesh, card)
+
+        # (a) BASELINE config 4 through the CLI, and (b) the serial route
+        n = DIST_GRID
+        common = ["-device", "cuda", "-problem_type", "saddle", "-da_grid_x", str(n), "-da_grid_y", str(n),
+                  "-dtype", "f32", "-body_force", "trig", "-ksp_rtol", "1e-5", "-ksp_converged_reason",
+                  "-log_view", "-no_vtk"]
+        argvs = {
+            "dist": common + ["-dist", "-fieldsplit_inner_pc_type", "bjacobi", "-sub_pc_type", "chebyshev",
+                              "-pc_bjacobi_local_its", "4"],
+            "serial": common + ["-fieldsplit_inner_pc_type", "chebyshev", "-pc_chebyshev_esteig",
+                                "-pc_chebyshev_its", "4"],
+        }
+        out = {}
+        # host-bound times vary between runs: dist, serial, serial, dist,
+        # each route keeping its faster run
+        for label in ("dist", "serial", "serial", "dist"):
+            run, counts = _cli(argvs[label])
+            entries = dict(spmv.entry_launches)
+            res, prob = run.result, run.problem
+            its = res.iterations
+            t_asm, t_setup, t_solve = (run.log.phases[p].total_s for p in ("Assembly", "PCSetUp", "KSPSolve"))
+            true_rel = _true_rel_kkt(prob.A.planes.double(), prob.Bf.double(), prob.rhs, res.x)
+            if label in out and its != out[label]["its"]:
+                raise AssertionError(f"{label}: {its} its, the first run took {out[label]['its']}")
+            ms = min(t_solve / its * 1e3, out.get(label, {}).get("ms", float("inf")))
+            out[label] = {"its": its, "ms": ms, "x": res.x}
+            print(f"  {n}^2 f32 config 4, {label}: {its} its, {res.reason_name()}, Assembly {t_asm:.3f} s, "
+                  f"PCSetUp {t_setup:.3f} s, KSPSolve {t_solve:.4f} s, {t_solve / its * 1e3:.4f} ms/it, B1 "
+                  f"{counts['B1']} launches ({counts['B1'] / its:.2f} per iteration: local entry "
+                  f"{entries['stencil_spmv'] / its:.2f}, padded entry {entries['stencil_spmv_padded'] / its:.2f}), "
+                  f"true residual {true_rel:.3e} (f64) ({card})")
+            if label == "dist" and not (isinstance(prob, cli.DistProblem) and prob.A.mesh.size == 1):
+                raise AssertionError("the -dist run did not take the distributed route")
+            if not np.isfinite(true_rel):
+                raise AssertionError(f"{label}: true residual {true_rel}")
+        xd, xs = out["dist"]["x"], out["serial"]["x"]
+        dx = (krylov.tnorm(krylov.tsub(xd, xs)) / krylov.tnorm(xs)).item()
+        print(f"  config 4 at world size 1: distributed {out['dist']['its']} its, serial {out['serial']['its']} its, "
+              f"|x_dist - x_serial|/|x_serial| = {dx:.3e}, ms per iteration (the faster of two runs each) "
+              f"{out['dist']['ms']:.4f} / {out['serial']['ms']:.4f} = {out['dist']['ms'] / out['serial']['ms']:.3f}")
+        if out["dist"]["its"] != out["serial"]["its"] or not dx <= 1e-6:
+            raise AssertionError(f"the distributed and serial routes disagree: {out['dist']['its']} vs "
+                                 f"{out['serial']['its']} its, dx {dx}")
+
+        # (c) per-patch ILU(0) against the serial ILU(0), 257^2 f64
+        g257 = ["-device", "cuda", "-dtype", "f64", "-da_grid_x", "257", "-da_grid_y", "257", "-ksp_type", "gmres",
+                "-ksp_rtol", "1e-8", "-ksp_converged_reason", "-log_view", "-no_vtk"]
+        its = {}
+        for label, argv in (("dist bjacobi + ILU", g257 + ["-dist", "-pc_type", "bjacobi", "-sub_pc_type", "ilu"]),
+                            ("serial ILU", g257 + ["-pc_type", "ilu"])):
+            run, counts = _cli(argv)
+            t_setup, t_solve, ms = _phases(run)
+            its[label] = run.result.iterations
+            print(f"  257^2 f64 GMRES + {label}: {its[label]} its, PCSetUp {t_setup:.3f} s, KSPSolve {t_solve:.4f} s, "
+                  f"{ms:.3f} ms/it, B1 {counts['B1'] / its[label]:.1f} per iteration")
+        if len(set(its.values())) != 1:
+            raise AssertionError(f"GMRES + ILU counts differ: {its}")
+    finally:
+        tdist.destroy_process_group()
+    if tdist.is_initialized():
+        raise AssertionError("the process group outlived phase 20")
+
+
 def main():
     t_start = time.perf_counter()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1369,6 +1507,9 @@ def main():
         t0 = time.perf_counter()
         phase_ilu(dev, tmp, jacobi_1025)
         print(f"phase 19: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_dist(dev, tmp, card)
+        print(f"phase 20: {time.perf_counter() - t0:.1f} s")
 
     def row(name, source, replaces, launches, err, numbers):
         return {

@@ -5,6 +5,10 @@
         -ksp_rtol 1e-5 -ksp_converged_reason -log_view
     python -m saddle_point_petsc_tpu_torch.cli -da_grid_x 257 -da_grid_y 257 \
         -ksp_type cg -pc_type mg -ksp_rtol 1e-8 -ksp_converged_reason
+    torchrun --nproc_per_node 4 -m saddle_point_petsc_tpu_torch.cli -dist \
+        -problem_type saddle -da_grid_x 704 -da_grid_y 704 -body_force trig \
+        -fieldsplit_inner_pc_type bjacobi -sub_pc_type chebyshev \
+        -pc_bjacobi_local_its 4 -ksp_converged_reason
 
 Flags follow the JAX CLI and PETSc:
   -device {cuda,cpu}              where to assemble and solve [cuda]; cuda
@@ -22,6 +26,17 @@ Flags follow the JAX CLI and PETSc:
                                   (MATAIJ), banded DIA (kernel B3) or 2x2
                                   block-DIA (kernel B4); no effect on the
                                   saddle route
+  -dist                           distribute the stencil routes over the
+                                  ranks of the process group: SPMD
+                                  assembly, halo-exchange SpMV, all_reduce
+                                  reductions. Under torchrun every rank
+                                  joins the env:// world (one rank per
+                                  device, cuda:LOCAL_RANK); without it the
+                                  process is a world of one. NCCL on
+                                  CUDA, gloo on the CPU. Rank 0 alone
+                                  prints and writes the VTK file
+  -mesh <py,px>                   the process mesh of -dist [PETSC_DECIDE
+                                  near-square factorization of the world]
   -ksp_type/-pc_type/-ksp_rtol/-ksp_atol/-ksp_max_it/-ksp_monitor
   -ksp_converged_reason           (see solvers/ksp.py for the full set:
                                   every serial KSP and PC type of the JAX
@@ -37,8 +52,8 @@ Flags follow the JAX CLI and PETSc:
                                   on the card) as a Chrome trace in <dir>
   -options_left                   warn about unused options
 
--dist (with or without -mat_type) and -mesh belong to later slices of the
-port and raise NotImplementedError. -mat_stencil_backend,
+-mat_type aij|dia|bdia with -dist (MATMPIAIJ) belongs to a later slice of
+the port and raises NotImplementedError. -mat_stencil_backend,
 -mat_dia_backend and -mat_bdia_backend are not read: a tensor's device
 picks plain version or kernel, and -options_left reports them.
 """
@@ -46,15 +61,19 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import os
 import sys
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
-from saddle_point_petsc_tpu_torch.models import poisson, saddle
+from saddle_point_petsc_tpu_torch.models import fem, poisson, saddle
 from saddle_point_petsc_tpu_torch.ops import sparse
 from saddle_point_petsc_tpu_torch.ops.stencil import flat_to_field
+from saddle_point_petsc_tpu_torch.parallel import dist as pdist
+from saddle_point_petsc_tpu_torch.parallel.mesh import ProcessMesh, gather_field, init_from_env
 from saddle_point_petsc_tpu_torch.solvers.krylov import KrylovResult
 from saddle_point_petsc_tpu_torch.solvers.ksp import KSP
 from saddle_point_petsc_tpu_torch.utils import monitor, viewers, vtk
@@ -70,7 +89,7 @@ class CliRun:
 
     rc: int
     result: KrylovResult
-    problem: Any  # PoissonProblem, SaddleProblem or AijProblem
+    problem: Any  # PoissonProblem, SaddleProblem, AijProblem or DistProblem
     ksp: KSP
     log: monitor.LogView
 
@@ -96,19 +115,59 @@ class AijProblem:
     coords: torch.Tensor
 
 
-def _refuse_later_slices(opts):
-    if opts.get_bool("dist") or opts.has("mesh"):
+@dataclasses.dataclass(frozen=True)
+class DistProblem:
+    """The -dist route's system, each tensor this rank's patch: A the
+    distributed stencil operator, f the right-hand side, bc_mask the
+    eliminated nodes (boundary and padding); K and g on the saddle
+    route."""
+
+    A: pdist.DistStencilOperator
+    f: torch.Tensor
+    bc_mask: torch.Tensor
+    grid: pdist.DistGrid
+    K: Any = None  # DistSaddleOperator
+    g: Any = None
+
+    @property
+    def coords(self):
+        """The true grid's (ny, nx, 2) node coordinates, on the host."""
+        return fem.uniform_node_coords(self.grid.nex, self.grid.ney, dtype=self.f.dtype)
+
+    @property
+    def Bf(self):
+        return self.K.Bf
+
+    @property
+    def rhs(self):
+        return (self.f, self.g)
+
+
+def _refuse_later_slices(opts, problem_type, mat_type):
+    if opts.get_bool("dist") and problem_type == "poisson" and mat_type in ("aij", "dia", "bdia"):
         raise NotImplementedError(
-            "-dist/-mesh: the distributed operators (and MATMPIAIJ for "
-            "-mat_type aij -dist) are ROADMAP.md A.18-A.24"
+            f"-mat_type {mat_type} -dist: MATMPIAIJ (parallel/dist_csr.py) is ROADMAP.md A.20"
         )
 
 
+def _view(obj, opts, flag, name, mesh):
+    """viewers.view_from_options; on -dist the patches are gathered first
+    (every rank takes part) and rank 0 views the global object."""
+    if mesh is not None and opts.has(flag):
+        if isinstance(obj, pdist.DistStencilOperator):
+            obj = obj.as_local()
+        else:
+            obj = gather_field(obj, mesh)
+        if mesh.rank != 0:
+            return
+    viewers.view_from_options(obj, opts, flag, name)
+
+
 @contextlib.contextmanager
-def _profiled(trace_dir, device):
+def _profiled(trace_dir, device, name="kspsolve"):
     """torch.profiler around the block (CPU activity, and CUDA activity on
-    the card), written as a Chrome trace into trace_dir; nothing when
-    trace_dir is empty."""
+    the card), written as a Chrome trace <name>.pt.trace.json into
+    trace_dir; nothing when trace_dir is empty."""
     if not trace_dir:
         yield
         return
@@ -120,26 +179,44 @@ def _profiled(trace_dir, device):
     os.makedirs(trace_dir, exist_ok=True)
     with profile(activities=activities) as prof:
         yield
-    prof.export_chrome_trace(os.path.join(trace_dir, "kspsolve.pt.trace.json"))
+    prof.export_chrome_trace(os.path.join(trace_dir, f"{name}.pt.trace.json"))
 
 
 def run(argv=None) -> CliRun:
-    """Parse argv, assemble, solve, write outputs; return the whole run."""
+    """Parse argv, assemble, solve, write outputs; return the whole run.
+
+    With -dist: join or start the process group (`init_from_env`), run on
+    this rank's patch, and destroy the group at the end if this run
+    created it. Ranks other than 0 print nothing."""
     opts = Options(sys.argv[1:] if argv is None else argv)
     device = _device(opts)
     dtype_str = opts.get_str("dtype", "f64" if device.type == "cpu" else "f32")
     if dtype_str not in _DTYPES:
         raise ValueError(f"-dtype {dtype_str}: use f32 or f64")
-    dtype = _DTYPES[dtype_str]
-    _refuse_later_slices(opts)
-    log = monitor.LogView()
-
-    mx = opts.get_int("da_grid_x", 4)
-    my = opts.get_int("da_grid_y", 4)
-    nex, ney = mx - 1, my - 1
     problem_type = opts.get_str("problem_type", "poisson")
     if problem_type not in ("poisson", "saddle"):
         raise ValueError(f"-problem_type {problem_type}: use poisson or saddle")
+    _refuse_later_slices(opts, problem_type, opts.get_str("mat_type", "stencil"))
+    if not opts.get_bool("dist"):
+        return _run(opts, device, _DTYPES[dtype_str], problem_type, None)
+    device, created = init_from_env(device)
+    try:
+        mesh_str = opts.get_str("mesh", "")
+        shape = tuple(int(t) for t in mesh_str.split(",")) if mesh_str else None
+        mesh = ProcessMesh.create(shape, ny=opts.get_int("da_grid_y", 4), nx=opts.get_int("da_grid_x", 4),
+                                  device=device)
+        with contextlib.redirect_stdout(io.StringIO()) if mesh.rank else contextlib.nullcontext():
+            return _run(opts, device, _DTYPES[dtype_str], problem_type, mesh)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _run(opts, device, dtype, problem_type, mesh) -> CliRun:
+    log = monitor.LogView()
+    mx = opts.get_int("da_grid_x", 4)
+    my = opts.get_int("da_grid_y", 4)
+    nex, ney = mx - 1, my - 1
     body_force = opts.get_str("body_force", "constant")
     mat_type = opts.get_str("mat_type", "stencil")
     aij_n = None  # rows of the flat -mat_type aij|dia|bdia solution
@@ -158,6 +235,14 @@ def run(argv=None) -> CliRun:
                 A = csr
             b = f_flat
             prob = AijProblem(A, f_flat, mask, coords)
+        elif mesh is not None:
+            grid = pdist.DistGrid.create(nex, ney, mesh)
+            if problem_type == "saddle":
+                A, b, mask = pdist.assemble_saddle_dist(grid, dtype=dtype, body_force=body_force)
+                prob = DistProblem(A.A, b[0], mask, grid, A, b[1])
+            else:
+                A, b, mask = pdist.assemble_poisson_dist(grid, dtype=dtype, body_force=body_force)
+                prob = DistProblem(A, b, mask, grid)
         elif problem_type == "saddle":
             prob = saddle.assemble_saddle(nex, ney, dtype=dtype, device=device, body_force=body_force)
             A, b = prob.K, prob.rhs
@@ -166,8 +251,8 @@ def run(argv=None) -> CliRun:
             A, b = prob.A, prob.f
         monitor.synchronize(prob.f)
 
-    viewers.view_from_options(prob.A, opts, "A_mat_view", "A")
-    viewers.view_from_options(prob.f, opts, "f_vec_view", "f")
+    _view(prob.A, opts, "A_mat_view", "A", mesh)
+    _view(prob.f, opts, "f_vec_view", "f", mesh)
 
     # float32 products in full float32, as the JAX package's HIGHEST
     # precision contractions (B u, B^T lam, Schur setup)
@@ -181,7 +266,8 @@ def run(argv=None) -> CliRun:
     with log.phase("PCSetUp"):
         ksp.set_up()
         monitor.synchronize(prob.f)  # waits for the whole device
-    with _profiled(opts.get_str("profile", ""), device), log.phase("KSPSolve"):
+    trace = "kspsolve" if mesh is None or mesh.rank == 0 else f"kspsolve.rank{mesh.rank}"
+    with _profiled(opts.get_str("profile", ""), device, trace), log.phase("KSPSolve"):
         res = ksp.solve(b)
         monitor.synchronize(res.x)
 
@@ -197,16 +283,19 @@ def run(argv=None) -> CliRun:
     )
 
     u = res.x[0] if problem_type == "saddle" else res.x
-    viewers.view_from_options(u, opts, "solution_view", "u")
+    _view(u, opts, "solution_view", "u", mesh)
     if not opts.get_bool("no_vtk"):
         with log.phase("WriteVTK"):
             if aij_n is not None:  # flat MATAIJ solution -> field
                 u = flat_to_field(u[:aij_n], my, mx)
-            vtk.write_vtk(opts.get_str("vtk", "test.vtk"), prob.coords, u)
+            if mesh is None:
+                vtk.write_vtk(opts.get_str("vtk", "test.vtk"), prob.coords, u)
+            else:
+                vtk.write_vtk_dist(opts.get_str("vtk", "test.vtk"), prob.coords, u, mesh)
 
     if opts.get_bool("log_view"):
         log.report()
-    if opts.get_bool("options_left"):
+    if opts.get_bool("options_left") and (mesh is None or mesh.rank == 0):
         for name in opts.unused():
             print(f"WARNING! unused option: -{name}", file=sys.stderr)
     return CliRun(0 if res.converged_reason > 0 else 1, res, prob, ksp, log)

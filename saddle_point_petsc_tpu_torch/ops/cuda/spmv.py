@@ -10,7 +10,8 @@ Both replace the TPU kernel `_stencil_kernel`
 plain PyTorch versions, `planes_matvec_field` and `planes_matvec_padded`
 (from ops/stencil.py, re-exported here). On CUDA tensors they launch the
 CUDA kernel in csrc/stencil_spmv.cu, built at first use by `_build`, or
-raise. `launches` counts the kernel launches; `reset_launches()` zeroes it.
+raise. `launches` counts the kernel launches, `entry_launches` splits them
+by entry point; `reset_launches()` zeroes both.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from saddle_point_petsc_tpu_torch.ops.stencil import (  # noqa: F401
 )
 
 launches = 0  # kernel B1 launches since the last reset_launches()
+entry_launches = {"stencil_spmv": 0, "stencil_spmv_padded": 0}  # the same, by entry
 
 _DTYPES = (torch.float32, torch.float64)
 
@@ -29,6 +31,8 @@ _DTYPES = (torch.float32, torch.float64)
 def reset_launches():
     global launches
     launches = 0
+    for k in entry_launches:
+        entry_launches[k] = 0
 
 
 def _check(planes, x, halo):
@@ -89,6 +93,7 @@ def _launch(planes, x, padded):
         rc = fn(planes.data_ptr(), x.data_ptr(), y.data_ptr(), ny, nx, int(padded), stream)
     _build.check(lib, "stencil_spmv", rc)
     launches += 1
+    entry_launches["stencil_spmv_padded" if padded else "stencil_spmv"] += 1
     return y
 
 

@@ -1,0 +1,348 @@
+"""Distributed problems and operators over a process mesh (PyTorch twin of
+`saddle_point_petsc_tpu.parallel.dist`).
+
+A DMDA over torch.distributed: the global node grid is block-partitioned
+over a `ProcessMesh`, one rank per patch, and every step is SPMD:
+
+- assembly: each rank builds the element matrices of the elements whose
+  lower-left node it owns and folds the edge contributions onto its
+  neighbours with `halo_add` (MatAssembly's stash-and-ship,
+  DMLocalToGlobal with ADD_VALUES); neighbour masks come from
+  `halo_exchange`.
+- SpMV: the single-phase halo exchange posted first, kernel B1 on the
+  local patch with zero ghosts while it is in flight, then four thin edge
+  corrections (`_local_matvec`). SpMM (`matmat_field`): one exchange for
+  all k fields, then B1's padded entry on each exchanged field (the JAX
+  package's backend="pallas" form).
+- reductions: every inner product sums the ranks' partial dots with one
+  all_reduce (solvers/krylov.py, `distributed`); `DistSaddleOperator`
+  sums its B u, and the Schur PC its B D^-1 B^T, the same way.
+
+Grids that do not divide the mesh are padded with inactive nodes (identity
+rows, zero right-hand side), harmless to Krylov and to iteration counts.
+Element coordinates come from the same `torch.linspace` as the serial
+assembly (models/fem.py), sliced to the rank's elements, so a world of one
+assembles the serial operator bit for bit.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from saddle_point_petsc_tpu_torch.models import fem
+from saddle_point_petsc_tpu_torch.ops.cuda.spmv import stencil_spmv, stencil_spmv_padded
+from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator
+from saddle_point_petsc_tpu_torch.parallel.halo import (
+    halo_add,
+    halo_exchange,
+    halo_exchange_1phase,
+    halo_exchange_1phase_start,
+)
+from saddle_point_petsc_tpu_torch.parallel.mesh import ProcessMesh, gather_field
+from saddle_point_petsc_tpu_torch.solvers import precond
+from saddle_point_petsc_tpu_torch.solvers.operators import SaddleOperator, constraint_apply, constraint_apply_t
+
+_NODE_OFF = ((0, 0), (1, 0), (1, 1), (0, 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class DistGrid:
+    """Static description of the partitioned node grid.
+
+    nex/ney: global element counts; ny/nx: *padded* global node counts
+    (divisible by the mesh); my/mx: per-rank patch node counts.
+    """
+
+    mesh: ProcessMesh
+    nex: int
+    ney: int
+    ny: int
+    nx: int
+
+    @property
+    def py(self):
+        return self.mesh.py
+
+    @property
+    def px(self):
+        return self.mesh.px
+
+    @property
+    def my(self):
+        return self.ny // self.py
+
+    @property
+    def mx(self):
+        return self.nx // self.px
+
+    @property
+    def jlo(self):
+        """Global row of this rank's first node."""
+        return self.mesh.pj * self.my
+
+    @property
+    def ilo(self):
+        return self.mesh.pi * self.mx
+
+    @staticmethod
+    def create(nex, ney, mesh):
+        ny = -(-(ney + 1) // mesh.py) * mesh.py
+        nx = -(-(nex + 1) // mesh.px) * mesh.px
+        return DistGrid(mesh, nex, ney, ny, nx)
+
+
+def _edge_term(P, g):
+    """sum over (d, k) of P[2c + d, k, i] * g[d, i + k]: one ghost line's
+    contribution to the outputs beside it. P (4, 3, n) planes along the
+    edge, g (2, n + 2) ghost line -> (2, n)."""
+    n = P.shape[-1]
+    G = torch.stack([g[:, k : k + n] for k in range(3)], dim=1)  # (2, 3, n)
+    return (P.reshape(2, 2, 3, n) * G).sum(dim=(1, 2))
+
+
+def _local_matvec(planes, x, mesh):
+    """One rank's part of the distributed matvec.
+
+    planes: local (4, 3, 3, my, mx); x: local (2, my, mx). The exchange is
+    posted first, kernel B1 on the local patch with zero ghosts is
+    launched before the wait, then the ghost contributions are added as
+    four O(perimeter) edge corrections, each only where that neighbour
+    exists:
+
+        y = A_local x  +  sum_edges (ghost line -> adjacent row/column)
+    """
+    my, mx = x.shape[-2:]
+    pending = halo_exchange_1phase_start(x, mesh)
+    y = stencil_spmv(planes, x)
+    g = pending.wait()
+
+    def ghost_row(dj):
+        # padded row j = -1 (dj = -1) or j = my (dj = +1), corners included
+        parts = [g.get((dj, di)) for di in (-1, 0, 1)]
+        if all(p is None for p in parts):
+            return None
+        return torch.cat([x.new_zeros((2, w)) if p is None else p[:, 0]
+                          for p, w in zip(parts, (1, mx, 1))], dim=-1)
+
+    # in place: y is the fresh output of B1
+    lo, hi = ghost_row(-1), ghost_row(1)
+    if lo is not None:
+        y[:, 0, :] += _edge_term(planes[:, 0, :, 0, :], lo)
+    if hi is not None:
+        y[:, my - 1, :] += _edge_term(planes[:, 2, :, my - 1, :], hi)
+    # ghost columns, corner rows zero (the row corrections counted them)
+    for di, col in ((-1, 0), (1, mx - 1)):
+        gc = g.get((0, di))
+        if gc is not None:
+            y[:, :, col] += _edge_term(planes[:, :, di + 1, :, col], F.pad(gc[..., 0], (1, 1)))
+    return y
+
+
+@dataclasses.dataclass(frozen=True)
+class DistStencilOperator:
+    """Stencil operator whose planes and vectors are this rank's patches of
+    the global ones; its matvec exchanges halos with the neighbours."""
+
+    planes: torch.Tensor  # this rank's (4, 3, 3, my, mx)
+    mesh: ProcessMesh
+    # true (unpadded) node counts when the grid was padded to divide the
+    # mesh; None = the whole grid is active
+    active_shape: Any = None
+
+    @property
+    def local_shape(self):
+        return tuple(self.planes.shape[-2:])
+
+    @property
+    def grid_shape(self):
+        """The padded global (ny, nx)."""
+        my, mx = self.local_shape
+        return (my * self.mesh.py, mx * self.mesh.px)
+
+    @property
+    def n(self):
+        ny, nx = self.grid_shape
+        return ny * nx * 2
+
+    @property
+    def shape(self):
+        return (self.n, self.n)
+
+    @property
+    def nnz(self):
+        """Stored stencil entries over all ranks."""
+        return self.planes.numel() * self.mesh.size
+
+    def matvec_field(self, x):
+        """(2, my, mx) patch -> (2, my, mx) patch of A x."""
+        return _local_matvec(self.planes, x.contiguous(), self.mesh)
+
+    def __call__(self, x):
+        return self.matvec_field(x)
+
+    def matmat_field(self, X):
+        """Distributed SpMM on a batch of k patches (k, 2, my, mx): ONE halo
+        exchange ships the (k, 2)-deep edges of all k fields together, then
+        B1's padded entry runs on each field."""
+        Xp = halo_exchange_1phase(X.contiguous(), self.mesh)
+        return torch.stack([stencil_spmv_padded(self.planes, xp) for xp in Xp])
+
+    def diagonal(self):
+        """diag(A) as a (2, my, mx) patch."""
+        return torch.stack([self.planes[0, 1, 1], self.planes[3, 1, 1]])
+
+    def diag_blocks(self):
+        """Dense diagonal 2x2 blocks of the patch, (my, mx, 2, 2)."""
+        d = self.planes[:, 1, 1]
+        return d.reshape(2, 2, *d.shape[1:]).permute(2, 3, 0, 1)
+
+    def as_local(self):
+        """The gathered global operator on rank 0 (None on the others).
+        Collective; tests and host post-processing only."""
+        planes = gather_field(self.planes, self.mesh)
+        return None if planes is None else StencilOperator(planes)
+
+
+@dataclasses.dataclass(frozen=True)
+class DistSaddleOperator(SaddleOperator):
+    """KKT operator on (u, lam) with u a patch and lam replicated on every
+    rank. B^T lam is local; B u is a local (m,) contraction summed over the
+    ranks by one all_reduce."""
+
+    A: DistStencilOperator
+    Bf: torch.Tensor  # this rank's (m, 2, my, mx) patch of the rows
+
+    @property
+    def mesh(self):
+        return self.A.mesh
+
+    def __call__(self, v):
+        u, lam = v
+        return (self.A(u) + constraint_apply_t(self.Bf, lam), self.mesh.all_reduce(constraint_apply(self.Bf, u)))
+
+
+# ---------------------------------------------------------------------------
+# Distributed assembly
+# ---------------------------------------------------------------------------
+
+
+def _local_elements(grid: DistGrid, dtype, device):
+    """Corner coordinates (ej, ei, 4, 2) of this rank's elements: those
+    whose lower-left node it owns, inside the true grid."""
+    ej = max(0, min(grid.my, grid.ney - grid.jlo))
+    ei = max(0, min(grid.mx, grid.nex - grid.ilo))
+    xs = torch.linspace(0.0, 1.0, grid.nex + 1, dtype=dtype, device=device)[grid.ilo : grid.ilo + ei + 1]
+    ys = torch.linspace(0.0, 1.0, grid.ney + 1, dtype=dtype, device=device)[grid.jlo : grid.jlo + ej + 1]
+    Y, X = torch.meshgrid(ys, xs, indexing="ij")
+    return fem.element_corner_coords(torch.stack([X, Y], dim=-1))
+
+
+def _scatter_nodes(ev, my, mx):
+    """Fold per-element nodal values ev (ej, ei, 4, c) onto a padded
+    (c, my + 2, mx + 2) patch, node by node in element order."""
+    ej, ei = ev.shape[:2]
+    out = ev.new_zeros((ev.shape[-1], my + 2, mx + 2))
+    for a, (aj, ai) in enumerate(_NODE_OFF):
+        # in place: out is the fresh accumulator made above
+        out[:, 1 + aj : 1 + aj + ej, 1 + ai : 1 + ai + ei] += ev[:, :, a].permute(2, 0, 1)
+    return out
+
+
+def assemble_poisson_dist(grid: DistGrid, dtype=torch.float64, body_force="constant"):
+    """Distributed assembly of the boundary-eliminated vector-Poisson
+    system on the mesh's device: per-rank element batches, `halo_add`
+    ghost accumulation, symmetric elimination with neighbour masks.
+    Returns (A: DistStencilOperator, f, mask), each this rank's patch."""
+    mesh, my, mx = grid.mesh, grid.my, grid.mx
+    dev = mesh.device
+    corners = _local_elements(grid, dtype, dev)
+    ej, ei = corners.shape[:2]
+    kb = fem.element_stiffness(corners).reshape(ej, ei, 4, 2, 4, 2)
+    Wp = torch.zeros((4, 3, 3, my + 2, mx + 2), dtype=dtype, device=dev)
+    for a, (aj, ai) in enumerate(_NODE_OFF):
+        for b, (bj, bi) in enumerate(_NODE_OFF):
+            contrib = kb[:, :, a, :, b, :].permute(2, 3, 0, 1).reshape(4, ej, ei)
+            # in place: Wp is the fresh accumulator made above
+            Wp[:, bj - aj + 1, bi - ai + 1, 1 + aj : 1 + aj + ej, 1 + ai : 1 + ai + ei] += contrib
+    del kb
+    W = halo_add(Wp, mesh)
+    bf = fem.BODY_FORCES[body_force] if isinstance(body_force, str) else body_force
+    f = halo_add(_scatter_nodes(fem.element_rhs(corners, bf).reshape(ej, ei, 4, 2), my, mx), mesh)
+    # masks: the Dirichlet boundary of the true grid, plus the padding nodes
+    nyn, nxn = grid.ney + 1, grid.nex + 1
+    gj = grid.jlo + torch.arange(my, device=dev)[:, None]
+    gi = grid.ilo + torch.arange(mx, device=dev)[None, :]
+    inactive = (gj >= nyn) | (gi >= nxn)
+    mask = ((gi == 0) | (gi == nxn - 1) | (gj == 0) | (gj == nyn - 1)) | inactive
+    # symmetric elimination, with the neighbours' masks from the exchange
+    maskp = halo_exchange(mask.to(dtype), mesh) > 0.5
+    W = torch.where(mask, 0.0, W)
+    for dj in range(3):
+        for di in range(3):
+            # in place: W is the fresh tensor made by torch.where above
+            W[:, dj, di] *= torch.where(maskp[dj : dj + my, di : di + mx], 0.0, 1.0).to(dtype)
+    W[0, 1, 1] = torch.where(mask, 1.0, W[0, 1, 1])
+    W[3, 1, 1] = torch.where(mask, 1.0, W[3, 1, 1])
+    f = torch.where(mask, 0.0, f)
+    A = DistStencilOperator(W.contiguous(), mesh, active_shape=(nyn, nxn))
+    return A, f.contiguous(), mask
+
+
+def assemble_constraints_dist(grid: DistGrid, mask, dtype=torch.float64):
+    """Distributed constraint rows -> this rank's (4, 2, my, mx) patch: the
+    functionals of models/saddle.py, assembled per rank with `halo_add`."""
+    from saddle_point_petsc_tpu_torch.models.saddle import default_constraints
+
+    mesh, my, mx = grid.mesh, grid.my, grid.mx
+    corners = _local_elements(grid, dtype, mesh.device)
+    xi, w = fem.gauss_quadrature_q1(dtype, mesh.device)
+    ni = fem.shape_q1(xi)
+    _, det = fem.grad_shape_physical(fem.grad_shape_q1(xi), corners[..., None, :, :])
+    xp = ni @ corners  # (ej, ei, gp, 2)
+    rows = []
+    for fn in default_constraints():
+        wx, wy = fn(xp[..., 0], xp[..., 1])
+        be = ni.transpose(0, 1) @ ((w * det)[..., None] * torch.stack([wx, wy], dim=-1))
+        rows.append(halo_add(_scatter_nodes(be, my, mx), mesh))
+    return torch.where(mask, 0.0, torch.stack(rows)).contiguous()
+
+
+def assemble_saddle_dist(grid: DistGrid, dtype=torch.float64, body_force="trig"):
+    """Distributed KKT system: (K, (f, g), mask), with K's planes, Bf and f
+    this rank's patches and g replicated (BASELINE configs 4-5)."""
+    A, f, mask = assemble_poisson_dist(grid, dtype, body_force)
+    Bf = assemble_constraints_dist(grid, mask, dtype)
+    g = torch.zeros((Bf.shape[0],), dtype=dtype, device=grid.mesh.device)
+    return DistSaddleOperator(A, Bf), (f, g), mask
+
+
+def patch_truncate(A: DistStencilOperator) -> DistStencilOperator:
+    """Zero every stencil entry that couples across a patch boundary: the
+    block-diagonal operator over the patches underlying distributed
+    block-Jacobi (PETSc's parallel PCBJACOBI, one block per rank)."""
+    p = A.planes.clone()
+    # in place: p is the copy made above. Entry (., dj, di, j, i) couples
+    # node (j, i) to (j+dj-1, i+di-1); zero those reaching outside
+    p[:, 0, :, 0, :] = 0.0
+    p[:, 2, :, -1, :] = 0.0
+    p[:, :, 0, :, 0] = 0.0
+    p[:, :, 2, :, -1] = 0.0
+    return dataclasses.replace(A, planes=p)
+
+
+def dist_block_jacobi(A: DistStencilOperator, iters=8):
+    """Distributed block-Jacobi: one block per patch, solved approximately
+    by a fixed number of Chebyshev iterations (Jacobi inner PC) on the
+    patch-truncated operator; linear and symmetric, so valid under CG and
+    MINRES. The bound comes from a power iteration on the global vector
+    (`estimate_lmax` on the truncated distributed operator); the
+    application runs on the local patch alone (B1 with zero ghosts, which
+    the truncated entries never read): zero collectives."""
+    At = patch_truncate(A)
+    local = StencilOperator(At.planes)
+    inner = precond.jacobi(local)
+    est = precond.estimate_lmax(At, M=inner, template=torch.zeros_like(A.diagonal()))
+    return precond.chebyshev_pc(local, inner=inner, lmin=0.1 * 1.1 * est, lmax=1.1 * est, iters=iters)

@@ -1,6 +1,5 @@
 """ILU(0) of a stencil operator with its factors in the planes layout
-(PyTorch twin of the serial part of `saddle_point_petsc_tpu.solvers.
-ilu_stencil`).
+(PyTorch twin of `saddle_point_petsc_tpu.solvers.ilu_stencil`).
 
 - Factorization (setup, host): the planes are mapped to CSR in the
   natural interleaved ordering (`_slot_table`), factorized in f64 by the
@@ -15,8 +14,11 @@ ilu_stencil`).
   where every L and U application is `StencilOperator.matvec_field`:
   kernel B1 on a CUDA device, 2 x sweeps launches an apply.
 
-The parallel block-Jacobi form (`DistILU0PC`, `dist_ilu0`) belongs to the
-distributed operators, ROADMAP.md A.19.
+The parallel block-Jacobi form (`DistILU0PC`, `dist_ilu0`, PETSc's
+parallel default bjacobi + ILU(0)): each rank factors its own
+patch-truncated patch with `stencil_ilu0_host`, which gives the JAX
+package's numbers (it gathers the planes and loops over the patches)
+without a gather, and applies the sweeps to its patch: zero collectives.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from saddle_point_petsc_tpu_torch.ops.stencil import (
     field_to_flat,
     flat_to_field,
 )
+from saddle_point_petsc_tpu_torch.parallel.dist import patch_truncate
 from saddle_point_petsc_tpu_torch.solvers import precond
 
 # Slot masks in planes coordinates (p = 2c + d, dj, di): an entry couples
@@ -138,3 +141,21 @@ def stencil_ilu0(A: StencilOperator, sweeps=6) -> StencilILU0PC:
         return torch.tensor(a, dtype=planes.dtype, device=planes.device)
 
     return StencilILU0PC(put(Lp), put(Up), put(invd), sweeps)
+
+
+@dataclasses.dataclass(frozen=True)
+class DistILU0PC(StencilILU0PC):
+    """Distributed block-Jacobi with per-patch ILU(0) local solves: the
+    factors of this rank's patch (one block per rank), applied by sweeps
+    to its (2, my, mx) patch of the residual with zero collectives (B1 on
+    a CUDA device, 2 x sweeps launches an apply). Linear; as PETSc's
+    bjacobi + ILU, not symmetric."""
+
+
+def dist_ilu0(A, sweeps=6) -> DistILU0PC:
+    """Per-patch ILU(0) of a DistStencilOperator: patch-truncate (no
+    coupling across patches, so every patch is an independent block),
+    factor this rank's patch on the host in f64, and keep the factors on
+    the planes' device in their dtype."""
+    M = stencil_ilu0(StencilOperator(patch_truncate(A).planes), sweeps)
+    return DistILU0PC(M.Lp, M.Up, M.invd, sweeps)

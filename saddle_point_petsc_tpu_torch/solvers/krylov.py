@@ -17,10 +17,25 @@ rnorm <= max(rtol * rnorm0, atol), diverged when rnorm > dtol * rnorm0,
 where rnorm0 is the norm of the (preconditioned, for left-PC solvers)
 right-hand side. CG/MINRES/GMRES track the preconditioned residual norm;
 FGMRES (right PC) tracks the true residual norm.
+
+Distributed vectors (parallel/dist.py): inside `distributed(mesh)` every
+grid-shaped leaf (ndim >= 2: a field (2, my, mx), a batch (k, 2, my, mx))
+is this rank's patch of a global vector and every 1-D leaf (the KKT
+multipliers) is replicated, equal on every rank. All reductions go
+through `tdot`, `_kdot` and `_basis_dots`, which then sum the patch parts
+over the ranks with one all_reduce (the JAX package's psum), never a
+gather; every rank gets the same sums, so every rank takes the same
+branches. Each solver enters the context of its operator's mesh itself
+(`reduces_over_ranks`). Outside the context nothing changes: no
+collective and no extra sync. The distributed operators sum their own
+products over the ranks (parallel/dist.py).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Optional
 
@@ -60,13 +75,59 @@ def _leaves(v):
     return v if isinstance(v, tuple) else (v,)
 
 
+# the ProcessMesh of the distributed solve in progress, or None
+_MESH = contextvars.ContextVar("krylov_mesh", default=None)
+
+
+@contextlib.contextmanager
+def distributed(mesh):
+    """Within the block, reductions sum patch leaves over the ranks of
+    `mesh` (a parallel.mesh.ProcessMesh; see the module docstring)."""
+    token = _MESH.set(mesh)
+    try:
+        yield
+    finally:
+        _MESH.reset(token)
+
+
+def reduces_over_ranks(fn):
+    """Run fn(A, ...) inside `distributed(mesh)` when its operator A has a
+    mesh (a distributed operator, or a bound method of one such as
+    `matmat_field`); otherwise call fn as it is. Every solver (and
+    `precond.estimate_lmax`) enters the context here, and nowhere else."""
+    @functools.wraps(fn)
+    def run(A, *args, **kwargs):
+        mesh = getattr(getattr(A, "__self__", A), "mesh", None)
+        if mesh is None:
+            return fn(A, *args, **kwargs)
+        with distributed(mesh):
+            return fn(A, *args, **kwargs)
+
+    return run
+
+
+def _sum_leaves(dots, template):
+    """Sum per-leaf partial dots: the patch parts summed over the ranks by
+    one all_reduce (in place on their fresh sum), then the replicated
+    parts added."""
+    mesh = _MESH.get()
+    patch = rep = None
+    for d, leaf in zip(dots, template):
+        if mesh is not None and leaf.ndim >= 2:
+            patch = d if patch is None else patch + d
+        else:
+            rep = d if rep is None else rep + d
+    if patch is not None:
+        patch = mesh.all_reduce(patch)
+    if rep is None:
+        return patch
+    return rep if patch is None else patch + rep
+
+
 def tdot(x, y):
     """Inner product over all leaves, as a 0-d tensor."""
-    out = None
-    for a, b in zip(_leaves(x), _leaves(y)):
-        d = torch.dot(a.reshape(-1), b.reshape(-1))
-        out = d if out is None else out + d
-    return out
+    xs = _leaves(x)
+    return _sum_leaves([torch.dot(a.reshape(-1), b.reshape(-1)) for a, b in zip(xs, _leaves(y))], xs)
 
 
 def tnorm(x):
@@ -148,6 +209,7 @@ def _result(x, history, maxiter, bnorm, reason):
 # CG
 # ---------------------------------------------------------------------------
 
+@reduces_over_ranks
 def cg(
     A: Callable,
     b,
@@ -210,7 +272,7 @@ def cg(
 
 def _kdot(x, y):
     """Per-column dot over a leading-k batch: (k, ...) -> (k,)."""
-    return torch.sum((x * y).reshape(x.shape[0], -1), dim=1)
+    return _sum_leaves([torch.sum((x * y).reshape(x.shape[0], -1), dim=1)], [x])
 
 
 def _kax(a, x, y):
@@ -218,6 +280,7 @@ def _kax(a, x, y):
     return y + a.reshape((-1,) + (1,) * (x.ndim - 1)) * x
 
 
+@reduces_over_ranks
 def cg_multi(
     A: Callable,
     B,
@@ -307,6 +370,7 @@ def cg_multi(
 # MINRES
 # ---------------------------------------------------------------------------
 
+@reduces_over_ranks
 def minres(
     A: Callable,
     b,
@@ -389,11 +453,8 @@ def minres(
 
 def _basis_dots(V, k, w):
     """<V_i, w> for the first k basis vectors in one product per leaf, (k,)."""
-    out = None
-    for buf, leaf in zip(V, _leaves(w)):
-        d = buf[:k] @ leaf.reshape(-1)
-        out = d if out is None else out + d
-    return out
+    ws = _leaves(w)
+    return _sum_leaves([buf[:k] @ leaf.reshape(-1) for buf, leaf in zip(V, ws)], ws)
 
 
 def _basis_axpy(V, coefs, w):
@@ -504,6 +565,7 @@ def _gmres_impl(A, b, M, x0, rtol, atol, dtol, maxiter, restart, monitor, flexib
     return _result(x, history, maxiter, bnorm, reason)
 
 
+@reduces_over_ranks
 def gmres(
     A: Callable,
     b,
@@ -521,6 +583,7 @@ def gmres(
     return _gmres_impl(A, b, M, x0, rtol, atol, dtol, maxiter, restart, monitor, False)
 
 
+@reduces_over_ranks
 def fgmres(
     A: Callable,
     b,
@@ -567,6 +630,7 @@ def chebyshev_iterate(A: Callable, b, M: Optional[Callable] = None, x0=None,
     return x
 
 
+@reduces_over_ranks
 def chebyshev_fixed(
     A: Callable,
     b,
@@ -590,6 +654,7 @@ def chebyshev_fixed(
 # Richardson / Chebyshev KSP / BiCGStab
 # ---------------------------------------------------------------------------
 
+@reduces_over_ranks
 def richardson(
     A: Callable,
     b,
@@ -620,6 +685,7 @@ def richardson(
     return _result(x, history, maxiter, bnorm, reason)
 
 
+@reduces_over_ranks
 def chebyshev(
     A: Callable,
     b,
@@ -667,6 +733,7 @@ def chebyshev(
     return _result(x, history, maxiter, bnorm, reason)
 
 
+@reduces_over_ranks
 def bcgs(
     A: Callable,
     b,

@@ -1,5 +1,6 @@
 """KSP: options-configured Krylov solve driver (PyTorch twin of
-`saddle_point_petsc_tpu.solvers.ksp`), serial.
+`saddle_point_petsc_tpu.solvers.ksp`), serial and on the distributed
+stencil operators (parallel/dist.py).
 
 Supported options (prefix-scoped):
   -ksp_type {cg,minres,gmres,fgmres,bcgs,richardson,chebyshev}  [gmres]
@@ -32,6 +33,13 @@ Supported options (prefix-scoped):
       solve, KSPInnerPC; -fieldsplit_inner_ksp_rtol [1e-2],
       -fieldsplit_inner_ksp_max_it [10])
 
+On a DistStencilOperator: none, jacobi, pbjacobi, chebyshev
+(-pc_chebyshev_esteig), bjacobi (one block per rank: -sub_pc_type ilu
+[default] -> per-patch ILU(0) with -pc_ilu_sweeps, any other -> Chebyshev
+local solves with -pc_bjacobi_local_its [8]) and ilu (= bjacobi + ILU(0));
+the Schur fieldsplit on a DistSaddleOperator. sor, fieldsplit, mg and gamg
+there raise NotImplementedError naming their ROADMAP item.
+
 `KSP.mat_solve` (KSPMatSolve) solves for a batch of k right-hand sides
 with the pseudo-block CG (-ksp_type cg only, as in the JAX package) on a
 stencil, CSR or DIA operator; none and jacobi scale the whole batch, any
@@ -47,12 +55,23 @@ import torch
 
 from saddle_point_petsc_tpu_torch.ops import sparse as sp
 from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator
+from saddle_point_petsc_tpu_torch.parallel.dist import DistStencilOperator, dist_block_jacobi
 from saddle_point_petsc_tpu_torch.solvers import krylov, precond
 from saddle_point_petsc_tpu_torch.solvers.amg import amg_pc
-from saddle_point_petsc_tpu_torch.solvers.ilu_stencil import stencil_ilu0
+from saddle_point_petsc_tpu_torch.solvers.ilu_stencil import dist_ilu0, stencil_ilu0
 from saddle_point_petsc_tpu_torch.solvers.multigrid import mg_pc
 from saddle_point_petsc_tpu_torch.solvers.operators import SaddleOperator
 from saddle_point_petsc_tpu_torch.utils.options import Options
+
+
+# PC types whose distributed-stencil form rests on XLA partitioning global
+# shifted slices in the JAX package, which needs a design of its own here
+_DIST_LATER = {
+    "sor": "A.28",
+    "fieldsplit": "A.28",
+    "mg": "A.29",
+    "gamg": "A.21",
+}
 
 
 def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
@@ -64,6 +83,11 @@ def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
     opts = opts if opts is not None else Options()
     if pc_type in ("none", ""):
         return precond.IdentityPC()
+    if isinstance(A, DistStencilOperator) and pc_type in _DIST_LATER:
+        raise NotImplementedError(
+            f"-pc_type {pc_type} on a distributed stencil operator is ROADMAP.md "
+            f"{_DIST_LATER[pc_type]}"
+        )
 
     if isinstance(A, SaddleOperator):
         if pc_type != "fieldsplit":
@@ -102,6 +126,13 @@ def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
             A, omega=opts.get_float("pc_sor_omega", 1.0), sweeps=opts.get_int("pc_sor_its", 1)
         )
     if pc_type == "bjacobi":
+        # PETSc's parallel bjacobi takes its per-block solver from
+        # -sub_pc_type (ilu by default, as PETSc)
+        sub = opts.get_str("sub_pc_type", "ilu")
+        if isinstance(A, DistStencilOperator):  # one block per rank
+            if sub == "ilu":
+                return dist_ilu0(A, sweeps=opts.get_int("pc_ilu_sweeps", 6))
+            return dist_block_jacobi(A, iters=opts.get_int("pc_bjacobi_local_its", 8))
         nb = opts.get_int("pc_bjacobi_blocks", 4)
         if isinstance(A, StencilOperator):
             return precond.block_jacobi_stencil(A, nb)
@@ -110,6 +141,9 @@ def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
         raise ValueError("bjacobi PC requires stencil or CSR operator")
     if pc_type == "ilu":
         sweeps = opts.get_int("pc_ilu_sweeps", 6)
+        if isinstance(A, DistStencilOperator):
+            # PETSc's parallel ilu: bjacobi with a per-patch ILU(0)
+            return dist_ilu0(A, sweeps=sweeps)
         if isinstance(A, StencilOperator):
             # factors in stencil form: every sweep a stencil matvec (B1)
             return stencil_ilu0(A, sweeps=sweeps)
@@ -119,10 +153,10 @@ def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
     if pc_type == "chebyshev":
         lmin = opts.get_float("pc_chebyshev_lmin", 0.1)
         lmax = opts.get_float("pc_chebyshev_lmax", 1.1)
-        if opts.get_bool("pc_chebyshev_esteig") and isinstance(A, StencilOperator):
+        if opts.get_bool("pc_chebyshev_esteig") and isinstance(A, (StencilOperator, DistStencilOperator)):
             # PETSc -pc_chebyshev_esteig: a power-iteration bound on
             # lambda_max(D^-1 A), with the window (0.1, 1.1) * lmax
-            tmpl = torch.zeros((2, *A.grid_shape), dtype=A.planes.dtype, device=A.planes.device)
+            tmpl = torch.zeros_like(A.diagonal())  # a field, or this rank's patch of one
             est = precond.estimate_lmax(A, M=precond.jacobi(A), template=tmpl)
             lmin, lmax = 0.1 * 1.1 * est, 1.1 * est
         return precond.chebyshev_pc(A, lmin=lmin, lmax=lmax, iters=opts.get_int("pc_chebyshev_its", 3))
@@ -233,7 +267,7 @@ class KSP:
         if self.M is None:
             self.set_up()
         A, M = self.A, self.M
-        if isinstance(A, StencilOperator):
+        if isinstance(A, (StencilOperator, DistStencilOperator)):
             Ab = A.matmat_field
         else:
             def Ab(X):

@@ -128,17 +128,24 @@ class SchurPC:
     needs "diag" (an SPD PC, using |S|).
 
     inner_solve: callable r_u -> approx A^{-1} r_u. S_inv: (m, m) dense
-    inverse of the Schur approximation.
+    inverse of the Schur approximation. mesh: the ProcessMesh of a
+    distributed A (Bf and r_u are then this rank's patches, and B u is
+    summed over its ranks), None for a serial one.
     """
 
     inner_solve: Any
     Bf: torch.Tensor  # (m, 2, ny, nx)
     S_inv: torch.Tensor  # (m, m)
     fact_type: str = "full"
+    mesh: Any = None
 
     def __post_init__(self):
         if self.fact_type not in ("diag", "lower", "upper", "full"):
             raise ValueError(f"unknown Schur fact_type {self.fact_type!r}")
+
+    def _B(self, u):
+        Bu = constraint_apply(self.Bf, u)
+        return Bu if self.mesh is None else self.mesh.all_reduce(Bu)
 
     def __call__(self, r):
         ru, rlam = r
@@ -149,13 +156,13 @@ class SchurPC:
             return (Ainv(ru), -(self.S_inv @ rlam))
         if self.fact_type == "lower":
             zu = Ainv(ru)
-            return (zu, self.S_inv @ (rlam - constraint_apply(self.Bf, zu)))
+            return (zu, self.S_inv @ (rlam - self._B(zu)))
         if self.fact_type == "upper":
             zlam = self.S_inv @ rlam
             return (Ainv(ru - constraint_apply_t(self.Bf, zlam)), zlam)
         # full: L-D-U application
         yu = Ainv(ru)
-        zlam = self.S_inv @ (rlam - constraint_apply(self.Bf, yu))
+        zlam = self.S_inv @ (rlam - self._B(yu))
         return (yu - Ainv(constraint_apply_t(self.Bf, zlam)), zlam)
 
 
@@ -163,13 +170,18 @@ def schur_pc(A, Bf, inner_solve=None, fact_type="full") -> SchurPC:
     """Schur PC with S = -B diag(A)^{-1} B^T (dense m x m).
 
     A: operator exposing .diagonal() as a (2, ny, nx) field; Bf: the
-    constraint rows (m, 2, ny, nx)."""
+    constraint rows (m, 2, ny, nx). For a distributed A (one with a mesh)
+    both are patches: the m x m partial products are summed over its ranks
+    once, here, and the PC keeps the mesh for its B u."""
     dinv = _inv_diag(A)
     B2 = Bf.reshape(Bf.shape[0], -1)
-    S = -((B2 * dinv.reshape(-1)) @ B2.transpose(0, 1))  # negative definite
+    mesh = getattr(A, "mesh", None)
+    BDB = (B2 * dinv.reshape(-1)) @ B2.transpose(0, 1)
+    if mesh is not None:
+        BDB = mesh.all_reduce(BDB)
     if inner_solve is None:
         inner_solve = JacobiPC(dinv)
-    return SchurPC(inner_solve, Bf, inv_small(S), fact_type)
+    return SchurPC(inner_solve, Bf, inv_small(-BDB), fact_type, mesh)  # S = -B D^-1 B^T, negative definite
 
 
 # ---------------------------------------------------------------------------
@@ -201,11 +213,12 @@ class PBJacobiPC:
 
 
 def pbjacobi(A) -> PBJacobiPC:
-    """Point-block Jacobi of a stencil operator or a BSR."""
-    if isinstance(A, StencilOperator):
-        return PBJacobiPC(inv_small(A.diag_blocks()))
+    """Point-block Jacobi of a stencil operator (serial or distributed: the
+    blocks of the rank's patch) or a BSR."""
     if isinstance(A, sp.BSR):
         return PBJacobiPC(inv_small(sp.bsr_extract_diag_blocks(A)))
+    if hasattr(A, "diag_blocks"):
+        return PBJacobiPC(inv_small(A.diag_blocks()))
     raise TypeError(f"pbjacobi: unsupported operator {type(A)}")
 
 
@@ -601,6 +614,7 @@ def _start_vector(template, generator):
     return tuple(draw(a) for a in template) if isinstance(template, tuple) else draw(template)
 
 
+@krylov.reduces_over_ranks
 def estimate_lmax(A, M=None, iters=10, generator=None, template=None):
     """Power-iteration estimate of lambda_max(M A) for Chebyshev bounds, as
     a Python float.
@@ -610,13 +624,25 @@ def estimate_lmax(A, M=None, iters=10, generator=None, template=None):
     torch.Generator (default: one seeded with 0), where the JAX function
     takes a PRNG key. The loop stays on the device and syncs once, at the
     end.
+
+    For a distributed A (one with a mesh) the template's fields are patches:
+    every rank draws the global start vector from the same generator and
+    keeps its patch, and the norms sum over the ranks, so the estimate is
+    the serial one of the global operator.
     """
     if template is None:
         raise ValueError("need a template vector")
     M = M or IdentityPC()
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    v = _start_vector(template, generator)
+    mesh = getattr(A, "mesh", None)
+    if mesh is None:
+        v = _start_vector(template, generator)
+    else:  # fields (ndim >= 2) are patches, 1-D leaves replicated
+        leaves = template if isinstance(template, tuple) else (template,)
+        draw = _start_vector(tuple(mesh.global_like(a) if a.ndim >= 2 else a for a in leaves), generator)
+        v = tuple((mesh.local_patch(g) if a.ndim >= 2 else g).to(a.device).contiguous() for g, a in zip(draw, leaves))
+        v = v if isinstance(template, tuple) else v[0]
     lam = None
     for _ in range(iters):
         w = M(A(v))

@@ -1,0 +1,212 @@
+"""Measure the distributed stencil path on CUDA cards.
+
+    python -m saddle_point_petsc_tpu_torch.tools.dist_probe overhead
+    python -m saddle_point_petsc_tpu_torch.tools.dist_probe mesh [--ranks 4]
+    python -m saddle_point_petsc_tpu_torch.tools.dist_probe cli [--repeats 3]
+
+`overhead` (one card, a world of one on NCCL): the host time of one
+all_reduce of a 0-d tensor, of a halo exchange with no neighbours, and of
+a MINRES iteration of BASELINE config 4's solver at 704^2 f32 on the
+distributed route and on the serial route with the PC a 1 x 1 mesh
+reduces to, each followed by a torch.profiler table of 50 iterations
+(host time per operator, device time per kernel).
+
+`cli` (one card, a world of one on NCCL): BASELINE config 4 at 704^2 f32
+through the CLI, the -dist route and the serial route with the PC a 1 x 1
+mesh reduces to, alternating in one process (dist first), each run's
+PCSetUp and KSPSolve seconds and ms per iteration from -log_view. (A world
+of one calls no all_reduce: `ProcessMesh.all_reduce` is the identity
+there.)
+
+`mesh` (as many cards as ranks): the CLI under `python -m
+torch.distributed.run --standalone --nproc_per_node N`, one rank per
+card. First the 65^2 f64 saddle route with -dist on a 2 x (N/2) mesh
+over NCCL against the same command over gloo on the CPU (equal its= line,
+VTK values to 1e-8 of max|u|), then config 4 at 704^2 f32 on N ranks and
+on one rank: iterations, KSPSolve seconds and ms per iteration from
+-log_view.
+
+Every time is on the host clock around synchronized device work; the
+card's name and power limit are printed with them.
+"""
+from __future__ import annotations
+
+import argparse
+import datetime
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+# BASELINE config 4's A-block PC, and the one a 1 x 1 mesh reduces to
+CONFIG4_PC = ["-fieldsplit_inner_pc_type", "bjacobi", "-sub_pc_type", "chebyshev", "-pc_bjacobi_local_its", "4"]
+SERIAL4_PC = ["-fieldsplit_inner_pc_type", "chebyshev", "-pc_chebyshev_esteig", "-pc_chebyshev_its", "4"]
+CONFIG4_SYSTEM = ["-problem_type", "saddle", "-body_force", "trig", "-dtype", "f32", "-ksp_rtol", "1e-5"]
+CONFIG4 = CONFIG4_SYSTEM + CONFIG4_PC
+
+
+def _card():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def _host_us(fn, n=500):
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def overhead(side=704):
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from saddle_point_petsc_tpu_torch.models import saddle
+    from saddle_point_petsc_tpu_torch.parallel import dist as pdist
+    from saddle_point_petsc_tpu_torch.parallel import halo
+    from saddle_point_petsc_tpu_torch.parallel import mesh as pmesh
+    from saddle_point_petsc_tpu_torch.solvers import krylov
+    from saddle_point_petsc_tpu_torch.solvers.ksp import make_pc
+    from saddle_point_petsc_tpu_torch.utils.options import Options
+
+    card = _card()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+                                world_size=1, device_id=dev, timeout=datetime.timedelta(seconds=120))
+        try:
+            mesh = pmesh.ProcessMesh.create(device=dev)
+            t = torch.ones((), device=dev)
+            print(f"all_reduce of a 0-d tensor: {_host_us(lambda: dist.all_reduce(t)):.1f} us a call; with "
+                  f".item() after it {_host_us(lambda: (dist.all_reduce(t), t.item())):.1f} us; .item() alone "
+                  f"{_host_us(lambda: t.item()):.1f} us ({card})")
+            x = torch.randn((2, side, side), device=dev)
+            print(f"halo_exchange_1phase_start + wait, no neighbours: "
+                  f"{_host_us(lambda: halo.halo_exchange_1phase_start(x, mesh).wait()):.1f} us a call")
+            f32 = torch.float32
+            K, rhs, _ = pdist.assemble_saddle_dist(pdist.DistGrid.create(side - 1, side - 1, mesh), dtype=f32,
+                                                   body_force="trig")
+            sp = saddle.assemble_saddle(side - 1, side - 1, dtype=f32, device=dev, body_force="trig")
+            Md = make_pc("fieldsplit", K, Options(CONFIG4_PC), ksp_type="minres")
+            Ms = make_pc("fieldsplit", sp.K, Options(SERIAL4_PC), ksp_type="minres")
+            for label, (A, b, M) in (("distributed", (K, rhs, Md)), ("serial", (sp.K, sp.rhs, Ms))):
+                krylov.minres(A, b, M=M, rtol=1e-30, maxiter=20)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                krylov.minres(A, b, M=M, rtol=1e-30, maxiter=200)
+                torch.cuda.synchronize()
+                print(f"{label}: {(time.perf_counter() - t0) / 200 * 1e3:.3f} ms a MINRES iteration "
+                      f"(200 iterations at {side}^2 f32) ({card})")
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    krylov.minres(A, b, M=M, rtol=1e-30, maxiter=50)
+                    torch.cuda.synchronize()
+                print(prof.key_averages().table(sort_by="cpu_time_total", row_limit=20))
+        finally:
+            dist.destroy_process_group()
+
+
+def cli_runs(repeats, side=704):
+    import torch.distributed as dist
+
+    from saddle_point_petsc_tpu_torch import cli
+
+    card = _card()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    common = ["-device", "cuda", "-da_grid_x", str(side), "-da_grid_y", str(side), "-no_vtk"] + CONFIG4_SYSTEM
+    argvs = {"dist": common + ["-dist"] + CONFIG4_PC, "serial": common + SERIAL4_PC}
+    print(f"config 4 at {side}^2 f32 through the CLI, alternating, in one process ({card})")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+                                world_size=1, device_id=dev, timeout=datetime.timedelta(seconds=120))
+        try:
+            for k in range(repeats):
+                for label in argvs:
+                    run = cli.run(argvs[label])
+                    its = run.result.iterations
+                    setup, solve = (run.log.phases[p].total_s for p in ("PCSetUp", "KSPSolve"))
+                    print(f"  run {k + 1} {label}: {its} its, {run.result.reason_name()}, PCSetUp {setup:.4f} s, "
+                          f"KSPSolve {solve:.4f} s, {solve / its * 1e3:.4f} ms/it", flush=True)
+        finally:
+            dist.destroy_process_group()
+
+
+def _torchrun(n, argv, cwd, env=None):
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(n),
+           "-m", "saddle_point_petsc_tpu_torch.cli"] + argv
+    print("$ " + " ".join(cmd[1:]), flush=True)
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=cwd, env={**os.environ, **(env or {})}, capture_output=True, text=True,
+                       timeout=600)
+    print(p.stdout.strip())
+    if p.returncode != 0:
+        print(p.stderr[-4000:])
+        raise SystemExit(f"rc {p.returncode}")
+    print(f"  ({time.perf_counter() - t0:.1f} s with the launch)", flush=True)
+    return p.stdout
+
+
+def _vtk_values(path):
+    lines = open(path).read().split("\n")
+    head = [i for i, ln in enumerate(lines) if ln.startswith("POINT_DATA")][0]
+    vals = np.array([float(v) for ln in lines[head:] if ln[:1] not in "PVSL" for v in ln.split()])
+    return lines[:head], vals
+
+
+def mesh_runs(ranks):
+    card = _card()
+    shape = f"2,{ranks // 2}" if ranks > 1 else "1,1"
+    pkg = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = {"PYTHONPATH": pkg + os.pathsep + os.environ.get("PYTHONPATH", ""), "OMP_NUM_THREADS": "1"}
+    its = re.compile(r"its=(\d+), reason=(\w+)")
+    with tempfile.TemporaryDirectory() as tmp:
+        small = ["-problem_type", "saddle", "-body_force", "trig", "-da_grid_x", "65", "-da_grid_y", "65",
+                 "-dtype", "f64", "-ksp_rtol", "1e-8", "-ksp_converged_reason", "-dist", "-mesh", shape]
+        out = {}
+        for device in ("cuda", "cpu"):
+            path = os.path.join(tmp, f"{device}.vtk")
+            out[device] = (its.findall(_torchrun(ranks, ["-device", device, "-vtk", path] + small, tmp, env)),
+                           _vtk_values(path))
+        (its_g, (geo_g, v_g)), (its_c, (geo_c, v_c)) = out["cuda"], out["cpu"]
+        dv = float(np.max(np.abs(v_g - v_c)) / np.max(np.abs(v_c)))
+        print(f"65^2 f64 on a {shape} mesh: NCCL {its_g}, gloo {its_c}, VTK geometry equal {geo_g == geo_c}, "
+              f"max|u_nccl - u_gloo| / max|u| = {dv:.3e}")
+        # the ranks' sums reduce in another order on NCCL than on gloo: counts within 1
+        if abs(int(its_g[0][0]) - int(its_c[0][0])) > 1 or geo_g != geo_c or not dv <= 1e-8:
+            raise SystemExit("NCCL and gloo disagree")
+        big = ["-device", "cuda", "-da_grid_x", "704", "-da_grid_y", "704", "-ksp_converged_reason", "-log_view",
+               "-no_vtk", "-dist"]
+        solve = re.compile(r"^KSPSolve\s+\d+\s+(\S+)", re.M)
+        for n, mesh in ((ranks, shape), (1, "1,1")):
+            text = _torchrun(n, big + ["-mesh", mesh] + CONFIG4, tmp, env)
+            (k, reason), t = its.findall(text)[0], float(solve.findall(text)[0])
+            print(f"704^2 f32 config 4 on {n} rank(s), mesh {mesh}: {k} its, {reason}, KSPSolve {t:.4f} s, "
+                  f"{t / int(k) * 1e3:.4f} ms/it ({card}, each rank its own card)")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("mode", choices=("overhead", "cli", "mesh"))
+    ap.add_argument("--ranks", type=int, default=4)
+    ap.add_argument("--repeats", type=int, default=3)
+    args = ap.parse_args(argv)
+    if args.mode == "overhead":
+        overhead()
+    elif args.mode == "cli":
+        cli_runs(args.repeats)
+    else:
+        mesh_runs(args.ranks)
+
+
+if __name__ == "__main__":
+    main()

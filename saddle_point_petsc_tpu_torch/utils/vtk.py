@@ -3,7 +3,9 @@
 Writes the same text as the JAX package: POLYDATA with one quad POLYGON
 per element, points in row-major node order, and the solution as
 POINT_DATA (vector U and scalars Ux, Uy). Tensors are copied to the host
-first; the single process writes the file.
+first; one process writes the file. A distributed field (`write_vtk_dist`)
+is gathered to rank 0, cropped to the true grid and written there alone,
+as the JAX package gathers with `process_allgather` for a single writer.
 """
 from __future__ import annotations
 
@@ -64,6 +66,20 @@ def write_vtk(path, coords, u=None, title="saddle_point_petsc_tpu output"):
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     return path
+
+
+def write_vtk_dist(path, coords, u, mesh, title="saddle_point_petsc_tpu output"):
+    """write_vtk of a distributed field: u is this rank's (2, my, mx) patch
+    of a grid padded to divide `mesh`; the patches are gathered to rank 0,
+    cropped to coords' (ny, nx) and written by rank 0 alone. Collective:
+    every rank calls it; returns the path on rank 0, None elsewhere."""
+    from saddle_point_petsc_tpu_torch.parallel.mesh import gather_field
+
+    u = gather_field(u, mesh)
+    if mesh.rank != 0:
+        return None
+    ny, nx = coords.shape[:2]
+    return write_vtk(path, coords, u[:, :ny, :nx], title)
 
 
 def read_vtk_points(path):

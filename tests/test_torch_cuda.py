@@ -403,3 +403,74 @@ def test_stencil_ilu_on_card_matches_cpu(dev, dtype, tol):
     z0 = M0(r)
     assert z0.is_cuda
     assert _within(z0.cpu(), precond.ilu0(csr_cpu, sweeps=0)(r.cpu()), tol)
+
+
+@pytest.fixture
+def nccl_world(dev):
+    """A world of one over NCCL on the card (an in-process store),
+    destroyed at the end."""
+    import torch.distributed as dist
+
+    from saddle_point_petsc_tpu_torch.parallel import mesh as pmesh
+
+    d, created = pmesh.init_from_env(dev)
+    assert created and dist.get_backend() == "nccl"
+    yield pmesh.ProcessMesh.create(device=d)
+    dist.destroy_process_group()
+
+
+def test_process_mesh_default_device_is_the_card(nccl_world):
+    """ProcessMesh.create() with no device holds its patches on the current
+    card, and the distributed assembly puts them there."""
+    from saddle_point_petsc_tpu_torch.parallel import dist as pdist
+    from saddle_point_petsc_tpu_torch.parallel import mesh as pmesh
+
+    m = pmesh.ProcessMesh.create()
+    assert m.device == torch.device("cuda", torch.cuda.current_device()) == nccl_world.device
+    A, f, mask = pdist.assemble_poisson_dist(pdist.DistGrid.create(16, 16, m))
+    assert A.planes.is_cuda and f.is_cuda and mask.is_cuda
+
+
+@pytest.mark.parametrize("overlap", [True, False], ids=["overlap", "padded"])
+def test_dist_matvec_world_of_one_on_card(nccl_world, overlap):
+    """Both forms of the distributed matvec in a world of one on the card:
+    the serial B1 result (to B1's own bounds), through B1's local entry
+    (the operator's matvec, overlap form) or its padded entry (one field
+    through `matmat_field`), one launch each; the halo exchange and
+    halo_add against zero padding and cropping."""
+    from saddle_point_petsc_tpu_torch.parallel import dist as pdist
+    from saddle_point_petsc_tpu_torch.parallel import halo
+
+    A, f, _ = pdist.assemble_poisson_dist(pdist.DistGrid.create(40, 27, nccl_world), dtype=torch.float32)
+    serial = poisson.assemble_poisson(40, 27, dtype=torch.float32, device=nccl_world.device)
+    assert torch.equal(A.planes, serial.A.planes) and torch.equal(f, serial.f)
+    x = torch.randn((2, 28, 41), dtype=torch.float32, device=nccl_world.device)
+    xp = halo.halo_exchange_1phase(x, nccl_world)
+    assert torch.equal(xp, torch.nn.functional.pad(x, (1, 1, 1, 1)))
+    assert torch.equal(halo.halo_add(xp, nccl_world), x)
+    spmv.reset_launches()
+    y = A(x) if overlap else A.matmat_field(x[None])[0]
+    entry = "stencil_spmv" if overlap else "stencil_spmv_padded"
+    assert spmv.launches == spmv.entry_launches[entry] == 1
+    assert _within(y.cpu(), serial.A(x).cpu(), 1e-5)
+
+
+def test_dist_cli_world_of_one_on_card(nccl_world):
+    """The CLI's -dist saddle route with BASELINE config 4's solver on the
+    card, in the world of one (reused, not destroyed by the run), against
+    the serial route with the PC the 1 x 1 mesh reduces to: the same
+    iteration count and solution, B1 launched every iteration."""
+    import torch.distributed as dist
+
+    common = ["-device", "cuda", "-problem_type", "saddle", "-body_force", "trig", "-da_grid_x", "65",
+              "-da_grid_y", "65", "-dtype", "f32", "-ksp_rtol", "1e-5", "-no_vtk"]
+    spmv.reset_launches()
+    d = cli.run(common + ["-dist", "-fieldsplit_inner_pc_type", "bjacobi", "-sub_pc_type", "chebyshev",
+                          "-pc_bjacobi_local_its", "4"])
+    launches = spmv.launches
+    s = cli.run(common + ["-fieldsplit_inner_pc_type", "chebyshev", "-pc_chebyshev_esteig",
+                          "-pc_chebyshev_its", "4"])
+    assert dist.is_initialized()
+    assert d.rc == s.rc == 0 and d.result.iterations == s.result.iterations
+    assert launches >= d.result.iterations
+    assert _within(d.result.x[0].cpu(), s.result.x[0].cpu(), 1e-6)
