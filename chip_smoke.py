@@ -128,6 +128,24 @@ Phases (each passes or raises; the script exits non-zero on any failure):
     keeps its faster run); (c) GMRES at 257^2 f64 with -dist -pc_type bjacobi
     -sub_pc_type ilu against the serial -pc_type ilu: the same count.
     Multi-rank NCCL exchange needs more than one card and is not run.
+21. MATMPIAIJ (parallel/dist_csr.py) in a world of one on NCCL (its own
+    FileStore and group, destroyed at the end), on the 704^2 Q1 operator
+    (BASELINE config 4's grid, 991,232 rows) in f32: the DistAIJ with its
+    banded copy (dia="auto", B3) and without (dia="off", B5), each matvec
+    against the serial CSR matvec with exactly one launch, each kernel
+    launch against its plain version on the same inputs (bit-equal), the
+    matvecs timed beside the serial DIA's; the per-rank ILU(0) on the card
+    against the CPU build of the same factors, 2 x 6 B5 launches an apply;
+    matmat at k = 8 (one B6 launch, row-major and KSPMatSolve's transposed
+    batch) against 8 column matvecs; exchange_triplets and
+    dist_aij_from_coo on the card (257^2 f64, duplicated and shuffled
+    triplets) against dist_aij_from_scipy; then the CLI: -mat_type aij
+    -dist with CG + Jacobi and CG + bjacobi (per-rank ILU(0), 6 sweeps) to
+    rtol 1e-5, beside the serial -mat_type aij route with the PC a world of
+    one reduces to (Jacobi; -pc_type ilu, 6 CSR sweeps), run dist, serial,
+    serial, dist: iterations, reason, Assembly, PCSetUp and KSPSolve
+    seconds, ms per iteration, B3/B5/B6 launches per iteration and the f64
+    true residual.
 
 Each kernel's timing runs in the order plain, kernel, library, library,
 kernel, plain (medians of 60 launches each) and prints the kernel's
@@ -168,6 +186,7 @@ from saddle_point_petsc_tpu_torch.ops.cuda import _build, bdia, dia, dia_spmm, e
 from saddle_point_petsc_tpu_torch.models import saddle
 from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator, field_to_flat
 from saddle_point_petsc_tpu_torch.parallel import dist as pdist
+from saddle_point_petsc_tpu_torch.parallel import dist_csr
 from saddle_point_petsc_tpu_torch.parallel import halo
 from saddle_point_petsc_tpu_torch.parallel import mesh as pmesh
 from saddle_point_petsc_tpu_torch.solvers import amg, ilu_stencil, krylov, multigrid, precond, refine
@@ -1467,6 +1486,182 @@ def phase_dist(dev, tmp, card):
         raise AssertionError("the process group outlived phase 20")
 
 
+AIJ_GRID = 704  # phase 21: BASELINE config 4's grid, 991,232 rows of the Q1 operator
+
+
+def _aij_launch(label, fn, want):
+    """fn() with every kernel count set to 0 just before; the counts after
+    must be exactly `want` ({name: launches}, the rest 0)."""
+    _reset_counts()
+    out = fn()
+    counts = {k: v for k, v in _counts().items() if v}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    return out
+
+
+def _bits(label, kernel, plain, dtype):
+    """A kernel launch against its plain version on the same inputs: held to
+    TOL and to equal bits (B3 and B5 sum each row in the plain versions'
+    order)."""
+    _compare(f"{label} against its plain version", kernel, plain, dtype)
+    if not torch.equal(kernel, plain):
+        raise AssertionError(f"{label}: not bit-equal to its plain version")
+
+
+def _aij_kernels(dev, mesh, card):
+    """Phase 21 (a): the DistAIJ's products, per-rank ILU(0) and triplet
+    exchange on the card."""
+    n, f32 = AIJ_GRID, torch.float32
+    csr, _, _, _ = poisson.assemble_poisson_csr(n - 1, n - 1, dtype=f32, device=dev)
+    a = sparse.csr_to_scipy(csr)
+    t0 = time.perf_counter()
+    A = dist_csr.dist_aij_from_scipy(a, mesh, dtype=f32)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    Ae = dist_csr.dist_aij_from_scipy(a, mesh, dtype=f32, dia="off")
+    kd, ndiag = A.diag_cols_t.shape[0], len(A.dia_offsets)
+    if A.dia_data is None or A.has_ghosts or A.n_pad != a.shape[0]:
+        raise AssertionError(f"704^2 DistAIJ: bands {A.dia_offsets}, ghosts {A.has_ghosts}, n_pad {A.n_pad}")
+    print(f"  {n}^2 f32 DistAIJ: {A.n_pad} rows, {a.nnz} entries, kd {kd}, {ndiag} bands ({ndiag * A.n_pad} "
+          f"band slots <= 2 x {a.nnz}: dia='auto' attaches them), ELL {2 * kd * A.n_pad * 4 / 1e6:.0f} MB, "
+          f"bands {ndiag * A.n_pad * 4 / 1e6:.0f} MB, host plan {t_plan:.2f} s, ghost_count {A.ghost_count}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    x = torch.randn((A.n_pad,), generator=gen, dtype=f32, device=dev)
+    ref = csr.matvec(x)
+    y = _aij_launch("DistAIJ matvec, dia='auto'", lambda: A.matvec(x), {"B3": 1})
+    _compare("DistAIJ matvec (B3) against the serial CSR matvec", y, ref, f32)
+    _bits("B3 on the DistAIJ's bands", dia.dia_spmv_2d(A.dia_data, x, A.dia_offsets),
+          dia.dia_spmv_plain(A.dia_data, x, A.dia_offsets), f32)
+    y = _aij_launch("DistAIJ matvec, dia='off'", lambda: Ae.matvec(x), {"B5": 1})
+    _compare("DistAIJ matvec (B5) against the serial CSR matvec", y, ref, f32)
+    _bits("B5 on the DistAIJ's diag block", ell.ell_spmv(Ae.diag_cols_t, Ae.diag_vals_t, x),
+          ell.ell_spmv_plain(Ae.diag_cols_t, Ae.diag_vals_t, x), f32)
+    Ad, _ = sparse.csr_to_dia(csr)
+    t = {label: _median_ms(fn) for label, fn in (("DistAIJ B3", lambda: A.matvec(x)),
+                                                 ("DistAIJ B5", lambda: Ae.matvec(x)),
+                                                 ("serial DIA B3", lambda: Ad.matvec(x)),
+                                                 ("serial CSR", lambda: csr.matvec(x)))}
+    print(f"  {n}^2 f32 matvec device time (median of 60, CUDA events): "
+          + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in t.items()) + f" ({card})")
+
+    # per-rank ILU(0): the card's factors and apply against the CPU build
+    cpu_mesh = dataclasses.replace(mesh, device=torch.device("cpu"))
+    t0 = time.perf_counter()
+    M = dist_csr.dist_aij_ilu0(A, sweeps=6)
+    torch.cuda.synchronize()
+    t_ilu = time.perf_counter() - t0
+    M_cpu = dist_csr.dist_aij_ilu0(dist_csr.dist_aij_from_scipy(a, cpu_mesh, dtype=f32), sweeps=6)
+    for name in ("L_vals_t", "U_vals_t", "inv_diag"):
+        if not torch.equal(getattr(M, name).cpu(), getattr(M_cpu, name)):
+            raise AssertionError(f"DistAIJ ILU(0) {name}: the card's build differs from the CPU's")
+    r = torch.randn((A.n_pad,), generator=gen, dtype=f32, device=dev)
+    z = _aij_launch("DistAIJILU0PC apply", lambda: M(r), {"B5": 12})
+    _compare("DistAIJILU0PC apply on the card against the CPU", z.cpu(), M_cpu(r.cpu()), f32)
+    t_apply = _median_ms(lambda: M(r))
+    print(f"  per-rank ILU(0): host factorization {t_ilu:.2f} s, factors equal to the CPU build's, 12 B5 "
+          f"launches an apply, {t_apply * 1e3:.1f} us per apply (device, median of 60) ({card})")
+
+    # matmat, k = 8: row-major and KSPMatSolve's transposed batch, one B6 each
+    X = torch.randn((A.n_pad, 8), generator=gen, dtype=f32, device=dev)
+    cols = torch.stack([A.matvec(X[:, c].contiguous()) for c in range(8)], dim=1)
+    Y = _aij_launch("DistAIJ matmat, k = 8", lambda: A.matmat(X), {"B6": 1})
+    _compare("DistAIJ matmat (B6) against 8 column matvecs (B3)", Y, cols, f32)
+    XT = X.T.contiguous()
+    Yb = _aij_launch("DistAIJ matmat_batch, k = 8", lambda: A.matmat_batch(XT), {"B6": 1})
+    _compare("DistAIJ matmat_batch (B6) against 8 column matvecs (B3)", Yb.T, cols, f32)
+    _compare("B6 on the DistAIJ's bands against its plain version", dia_spmm.dia_spmm(A.dia_data, X, A.dia_offsets),
+             dia_spmm.dia_spmm_plain(A.dia_data, X, A.dia_offsets), f32)
+    del A, Ae, Ad, M, M_cpu, csr, a
+
+    # triplets on the card: duplicated and shuffled, against from_scipy
+    f64 = torch.float64
+    csr, _, _, _ = poisson.assemble_poisson_csr(256, 256, dtype=f64, device=dev)
+    a = sparse.csr_to_scipy(csr).tocoo()
+    rows = torch.tensor(np.concatenate([a.row, a.row]), dtype=torch.int64, device=dev)
+    cols_ = torch.tensor(np.concatenate([a.col, a.col]), dtype=torch.int64, device=dev)
+    vals = torch.tensor(np.concatenate([0.5 * a.data, 0.5 * a.data]), dtype=f64, device=dev)
+    order = torch.randperm(rows.shape[0], generator=gen, device=dev)
+    rows, cols_, vals = rows[order], cols_[order], vals[order]
+    r_, c_, v_, overflow = dist_csr.exchange_triplets(rows, cols_, vals, mesh, a.shape[0], rows.shape[0])
+    if not (r_.is_cuda and overflow.item() == 0 and torch.equal(r_, rows) and torch.equal(v_, vals)):
+        raise AssertionError("exchange_triplets in a world of one moved or dropped triplets")
+    t0 = time.perf_counter()
+    Ac = dist_csr.dist_aij_from_coo(rows, cols_, vals, a.shape[0], mesh)
+    torch.cuda.synchronize()
+    t_coo = time.perf_counter() - t0
+    As = dist_csr.dist_aij_from_scipy(sps.csr_matrix(a), mesh)
+    for name in ("diag_cols_t", "diag_vals_t", "off_cols_t", "send_idx", "dia_data"):
+        if not torch.equal(getattr(Ac, name), getattr(As, name)):
+            raise AssertionError(f"dist_aij_from_coo's {name} differs from dist_aij_from_scipy's")
+    print(f"  257^2 f64 dist_aij_from_coo on the card ({rows.shape[0]} triplets, each entry split in two and "
+          f"shuffled): {t_coo:.2f} s, its plan equal to dist_aij_from_scipy's")
+    x = torch.randn((As.n_pad,), generator=gen, dtype=f64, device=dev)
+    y = _aij_launch("DistAIJ matvec, 257^2 f64", lambda: As.matvec(x), {"B3": 1})
+    _compare("DistAIJ matvec (B3) against the serial CSR matvec", y, csr.matvec(x), f64)
+    _bits("B3 on the DistAIJ's bands", dia.dia_spmv_2d(As.dia_data, x, As.dia_offsets),
+          dia.dia_spmv_plain(As.dia_data, x, As.dia_offsets), f64)
+
+
+def _true_rel_aij(run):
+    """|f - A x| / |f| in f64 on the host, for an -mat_type aij run."""
+    prob = run.problem
+    A = prob.A
+    a = (A.to_scipy() if isinstance(A, dist_csr.DistAIJ) else sparse.csr_to_scipy(A)).astype(np.float64)
+    n = a.shape[0]
+    f = prob.f.double().cpu().numpy()[:n]
+    x = run.result.x.double().cpu().numpy()[:n]
+    return float(np.linalg.norm(f - a @ x) / np.linalg.norm(f))
+
+
+def phase_aij_dist(dev, tmp, card):
+    """Phase 21: MATMPIAIJ in a world of one on NCCL."""
+    tdist.init_process_group("nccl", store=tdist.FileStore(os.path.join(tmp, "nccl_store_aij"), 1), rank=0,
+                             world_size=1, device_id=dev, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = dist_csr.make_mesh_1d()
+        if tdist.get_backend() != "nccl" or mesh.device.type != "cuda":
+            raise AssertionError(f"backend {tdist.get_backend()}, mesh on {mesh.device}")
+        _aij_kernels(dev, mesh, card)
+
+        n = AIJ_GRID
+        common = ["-device", "cuda", "-mat_type", "aij", "-da_grid_x", str(n), "-da_grid_y", str(n), "-dtype", "f32",
+                  "-ksp_type", "cg", "-ksp_rtol", "1e-5", "-ksp_converged_reason", "-log_view", "-no_vtk"]
+        solves = {
+            "CG + Jacobi": ({"dist": ["-dist", "-pc_type", "jacobi"], "serial": ["-pc_type", "jacobi"]},
+                            {"dist": ("B3",), "serial": ()}),
+            "CG + bjacobi/ILU(0)": ({"dist": ["-dist", "-pc_type", "bjacobi"], "serial": ["-pc_type", "ilu"]},
+                                    {"dist": ("B3", "B5"), "serial": ()}),
+        }
+        for solve, (extra, kernels) in solves.items():
+            out = {}
+            # host-bound times vary between runs: dist, serial, serial, dist
+            for label in ("dist", "serial", "serial", "dist"):
+                run, counts = _cli(common + extra[label], kernels[label])
+                res = run.result
+                its = res.iterations
+                t_asm, t_setup, t_solve = (run.log.phases[p].total_s for p in ("Assembly", "PCSetUp", "KSPSolve"))
+                true_rel = _true_rel_aij(run)
+                per = ", ".join(f"{k} {counts[k] / its:.2f}" for k in ("B3", "B5", "B6"))
+                print(f"  {n}^2 f32 -mat_type aij {solve}, {label}: {its} its, {res.reason_name()}, Assembly "
+                      f"{t_asm:.3f} s, PCSetUp {t_setup:.3f} s, KSPSolve {t_solve:.4f} s, {t_solve / its * 1e3:.4f} "
+                      f"ms/it, launches per iteration {per}, true residual {true_rel:.3e} (f64) ({card})")
+                if (label == "dist") != isinstance(run.problem.A, dist_csr.DistAIJ):
+                    raise AssertionError(f"{solve}, {label}: the run took the wrong route")
+                if label in out and its != out[label]:
+                    raise AssertionError(f"{solve}, {label}: {its} its, the first run took {out[label]}")
+                # an f32 solution at this size leaves a floor near 0.05 (kappa(A) x f32's eps)
+                if not true_rel < 1.0:
+                    raise AssertionError(f"{solve}, {label}: true residual {true_rel}")
+                out[label] = its
+            print(f"  {solve} at world size 1: distributed {out['dist']} its, serial {out['serial']} its")
+    finally:
+        tdist.destroy_process_group()
+    if tdist.is_initialized():
+        raise AssertionError("the process group outlived phase 21")
+
+
 def main():
     t_start = time.perf_counter()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1510,6 +1705,9 @@ def main():
         t0 = time.perf_counter()
         phase_dist(dev, tmp, card)
         print(f"phase 20: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_aij_dist(dev, tmp, card)
+        print(f"phase 21: {time.perf_counter() - t0:.1f} s")
 
     def row(name, source, replaces, launches, err, numbers):
         return {

@@ -9,6 +9,9 @@
         -problem_type saddle -da_grid_x 704 -da_grid_y 704 -body_force trig \
         -fieldsplit_inner_pc_type bjacobi -sub_pc_type chebyshev \
         -pc_bjacobi_local_its 4 -ksp_converged_reason
+    torchrun --nproc_per_node 4 -m saddle_point_petsc_tpu_torch.cli -dist \
+        -mat_type aij -da_grid_x 704 -da_grid_y 704 -ksp_type cg \
+        -pc_type bjacobi -ksp_converged_reason
 
 Flags follow the JAX CLI and PETSc:
   -device {cuda,cpu}              where to assemble and solve [cuda]; cuda
@@ -26,17 +29,24 @@ Flags follow the JAX CLI and PETSc:
                                   (MATAIJ), banded DIA (kernel B3) or 2x2
                                   block-DIA (kernel B4); no effect on the
                                   saddle route
-  -dist                           distribute the stencil routes over the
-                                  ranks of the process group: SPMD
-                                  assembly, halo-exchange SpMV, all_reduce
-                                  reductions. Under torchrun every rank
-                                  joins the env:// world (one rank per
-                                  device, cuda:LOCAL_RANK); without it the
-                                  process is a world of one. NCCL on
-                                  CUDA, gloo on the CPU. Rank 0 alone
-                                  prints and writes the VTK file
-  -mesh <py,px>                   the process mesh of -dist [PETSC_DECIDE
-                                  near-square factorization of the world]
+  -dist                           distribute over the ranks of the
+                                  process group: the stencil routes by
+                                  SPMD assembly and halo-exchange SpMV;
+                                  -mat_type aij|dia|bdia as a DistAIJ
+                                  (MATMPIAIJ, parallel/dist_csr.py) whose
+                                  rows are partitioned over a 1-D mesh of
+                                  every rank, with an all_to_all ghost
+                                  scatter; all_reduce reductions. Under
+                                  torchrun every rank joins the env://
+                                  world (one rank per device,
+                                  cuda:LOCAL_RANK); without it the process
+                                  is a world of one. NCCL on CUDA, gloo on
+                                  the CPU. Rank 0 alone prints and writes
+                                  the VTK file
+  -mesh <py,px>                   the process mesh of the stencil routes'
+                                  -dist [PETSC_DECIDE near-square
+                                  factorization of the world]; not read
+                                  by -mat_type aij|dia|bdia
   -ksp_type/-pc_type/-ksp_rtol/-ksp_atol/-ksp_max_it/-ksp_monitor
   -ksp_converged_reason           (see solvers/ksp.py for the full set:
                                   every serial KSP and PC type of the JAX
@@ -52,8 +62,7 @@ Flags follow the JAX CLI and PETSc:
                                   on the card) as a Chrome trace in <dir>
   -options_left                   warn about unused options
 
--mat_type aij|dia|bdia with -dist (MATMPIAIJ) belongs to a later slice of
-the port and raises NotImplementedError. -mat_stencil_backend,
+-mat_stencil_backend,
 -mat_dia_backend and -mat_bdia_backend are not read: a tensor's device
 picks plain version or kernel, and -options_left reports them.
 """
@@ -73,7 +82,8 @@ from saddle_point_petsc_tpu_torch.models import fem, poisson, saddle
 from saddle_point_petsc_tpu_torch.ops import sparse
 from saddle_point_petsc_tpu_torch.ops.stencil import flat_to_field
 from saddle_point_petsc_tpu_torch.parallel import dist as pdist
-from saddle_point_petsc_tpu_torch.parallel.mesh import ProcessMesh, gather_field, init_from_env
+from saddle_point_petsc_tpu_torch.parallel import dist_csr
+from saddle_point_petsc_tpu_torch.parallel.mesh import ProcessMesh, gather_field, gather_rows, init_from_env
 from saddle_point_petsc_tpu_torch.solvers.krylov import KrylovResult
 from saddle_point_petsc_tpu_torch.solvers.ksp import KSP
 from saddle_point_petsc_tpu_torch.utils import monitor, viewers, vtk
@@ -81,6 +91,7 @@ from saddle_point_petsc_tpu_torch.utils.device import resolve_device
 from saddle_point_petsc_tpu_torch.utils.options import Options
 
 _DTYPES = {"f32": torch.float32, "f64": torch.float64}
+_AIJ_TYPES = ("aij", "dia", "bdia")
 
 
 @dataclasses.dataclass
@@ -107,7 +118,8 @@ def _device(opts):
 class AijProblem:
     """The Poisson system of the -mat_type aij|dia|bdia route: A a CSR, DIA
     or BDIA operator, f the flat interleaved right-hand side, bc_mask the
-    (n,) eliminated rows, coords (ny, nx, 2)."""
+    (n,) eliminated rows, coords (ny, nx, 2). On -dist A is a DistAIJ and
+    f this rank's rows of the zero-padded right-hand side."""
 
     A: Any
     f: torch.Tensor
@@ -143,21 +155,17 @@ class DistProblem:
         return (self.f, self.g)
 
 
-def _refuse_later_slices(opts, problem_type, mat_type):
-    if opts.get_bool("dist") and problem_type == "poisson" and mat_type in ("aij", "dia", "bdia"):
-        raise NotImplementedError(
-            f"-mat_type {mat_type} -dist: MATMPIAIJ (parallel/dist_csr.py) is ROADMAP.md A.20"
-        )
-
-
-def _view(obj, opts, flag, name, mesh):
-    """viewers.view_from_options; on -dist the patches are gathered first
-    (every rank takes part) and rank 0 views the global object."""
+def _view(obj, opts, flag, name, mesh, gather=gather_field):
+    """viewers.view_from_options; on -dist the operator, or the vector's
+    patches or rows (`gather`), are gathered first (every rank takes part)
+    and rank 0 views the global object."""
     if mesh is not None and opts.has(flag):
         if isinstance(obj, pdist.DistStencilOperator):
             obj = obj.as_local()
+        elif isinstance(obj, dist_csr.DistAIJ):
+            obj = sparse.scipy_to_csr(obj.to_scipy(), device="cpu")
         else:
-            obj = gather_field(obj, mesh)
+            obj = gather(obj, mesh)
         if mesh.rank != 0:
             return
     viewers.view_from_options(obj, opts, flag, name)
@@ -196,15 +204,19 @@ def run(argv=None) -> CliRun:
     problem_type = opts.get_str("problem_type", "poisson")
     if problem_type not in ("poisson", "saddle"):
         raise ValueError(f"-problem_type {problem_type}: use poisson or saddle")
-    _refuse_later_slices(opts, problem_type, opts.get_str("mat_type", "stencil"))
     if not opts.get_bool("dist"):
         return _run(opts, device, _DTYPES[dtype_str], problem_type, None)
     device, created = init_from_env(device)
     try:
-        mesh_str = opts.get_str("mesh", "")
-        shape = tuple(int(t) for t in mesh_str.split(",")) if mesh_str else None
-        mesh = ProcessMesh.create(shape, ny=opts.get_int("da_grid_y", 4), nx=opts.get_int("da_grid_x", 4),
-                                  device=device)
+        if problem_type == "poisson" and opts.get_str("mat_type", "stencil") in _AIJ_TYPES:
+            # MATMPIAIJ: rows over a 1-D mesh of every rank; -mesh is not
+            # read, as in the JAX CLI
+            mesh = dist_csr.make_mesh_1d(device)
+        else:
+            mesh_str = opts.get_str("mesh", "")
+            shape = tuple(int(t) for t in mesh_str.split(",")) if mesh_str else None
+            mesh = ProcessMesh.create(shape, ny=opts.get_int("da_grid_y", 4), nx=opts.get_int("da_grid_x", 4),
+                                      device=device)
         with contextlib.redirect_stdout(io.StringIO()) if mesh.rank else contextlib.nullcontext():
             return _run(opts, device, _DTYPES[dtype_str], problem_type, mesh)
     finally:
@@ -221,13 +233,18 @@ def _run(opts, device, dtype, problem_type, mesh) -> CliRun:
     mat_type = opts.get_str("mat_type", "stencil")
     aij_n = None  # rows of the flat -mat_type aij|dia|bdia solution
     with log.phase("Assembly"):
-        if mat_type in ("aij", "dia", "bdia") and problem_type == "poisson":
+        if mat_type in _AIJ_TYPES and problem_type == "poisson":
             # MATAIJ route: the same system through the general sparse layer
             csr, f_flat, mask, coords = poisson.assemble_poisson_csr(
                 nex, ney, dtype=dtype, device=device
             )
             aij_n = csr.shape[0]
-            if mat_type == "dia":
+            if mesh is not None:
+                # MATMPIAIJ: every rank plans the whole CSR and keeps its
+                # rows, the banded diag-block copy attached where it fits
+                A = dist_csr.dist_aij_from_scipy(sparse.csr_to_scipy(csr), mesh, dtype=dtype)
+                f_flat = dist_csr.pad_vector(f_flat, A.n_pad, mesh)
+            elif mat_type == "dia":
                 A, _ = sparse.csr_to_dia(csr)
             elif mat_type == "bdia":  # 2x2 blocks: the dof-interleaved layout
                 A = sparse.bsr_to_bdia(sparse.csr_to_bsr(csr, block=2))
@@ -251,8 +268,9 @@ def _run(opts, device, dtype, problem_type, mesh) -> CliRun:
             A, b = prob.A, prob.f
         monitor.synchronize(prob.f)
 
+    gather = gather_field if aij_n is None else gather_rows  # how a vector lies over the ranks
     _view(prob.A, opts, "A_mat_view", "A", mesh)
-    _view(prob.f, opts, "f_vec_view", "f", mesh)
+    _view(prob.f, opts, "f_vec_view", "f", mesh, gather)
 
     # float32 products in full float32, as the JAX package's HIGHEST
     # precision contractions (B u, B^T lam, Schur setup)
@@ -283,15 +301,19 @@ def _run(opts, device, dtype, problem_type, mesh) -> CliRun:
     )
 
     u = res.x[0] if problem_type == "saddle" else res.x
-    _view(u, opts, "solution_view", "u", mesh)
+    _view(u, opts, "solution_view", "u", mesh, gather)
     if not opts.get_bool("no_vtk"):
         with log.phase("WriteVTK"):
+            path = opts.get_str("vtk", "test.vtk")
             if aij_n is not None:  # flat MATAIJ solution -> field
-                u = flat_to_field(u[:aij_n], my, mx)
-            if mesh is None:
-                vtk.write_vtk(opts.get_str("vtk", "test.vtk"), prob.coords, u)
+                if mesh is not None:  # every rank's rows, to every rank
+                    u = gather_rows(u, mesh)
+                if mesh is None or mesh.rank == 0:
+                    vtk.write_vtk(path, prob.coords, flat_to_field(u[:aij_n], my, mx))
+            elif mesh is None:
+                vtk.write_vtk(path, prob.coords, u)
             else:
-                vtk.write_vtk_dist(opts.get_str("vtk", "test.vtk"), prob.coords, u, mesh)
+                vtk.write_vtk_dist(path, prob.coords, u, mesh)
 
     if opts.get_bool("log_view"):
         log.report()

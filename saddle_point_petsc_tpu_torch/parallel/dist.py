@@ -151,6 +151,8 @@ class DistStencilOperator:
     # true (unpadded) node counts when the grid was padded to divide the
     # mesh; None = the whole grid is active
     active_shape: Any = None
+    # its vectors are this rank's patches (solvers/krylov.py)
+    dist_leaves = ("patch",)
 
     @property
     def local_shape(self):
@@ -214,6 +216,8 @@ class DistSaddleOperator(SaddleOperator):
 
     A: DistStencilOperator
     Bf: torch.Tensor  # this rank's (m, 2, my, mx) patch of the rows
+    # (u, lam): u this rank's patch, lam replicated (solvers/krylov.py)
+    dist_leaves = ("patch", None)
 
     @property
     def mesh(self):

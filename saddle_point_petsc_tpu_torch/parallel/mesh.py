@@ -9,7 +9,9 @@ every field on its own device; neighbour ghosts move by torch.distributed
 point-to-point operations (parallel/halo.py) and every global reduction
 is one all_reduce of the ranks' partial sums (`ProcessMesh.all_reduce`,
 called by solvers/krylov.py's reductions and the distributed operators).
-NCCL serves CUDA devices, gloo the CPU.
+The row-partitioned matrix (parallel/dist_csr.py) lies on a (1, world)
+mesh and ships its ghost entries with one all_to_all
+(`ProcessMesh.all_to_all`). NCCL serves CUDA devices, gloo the CPU.
 
 Rank r sits at mesh position (r // px, r % px). `torchrun` numbers ranks
 host by host, so each host's ranks form contiguous mesh rows: the JAX
@@ -89,6 +91,21 @@ def init_from_env(device, timeout=TIMEOUT):
     return device, True
 
 
+@dataclasses.dataclass
+class PendingAllToAll:
+    """An all_to_all in flight: `wait()` returns its output. On a CUDA
+    device the wait orders the current stream after the exchange."""
+
+    work: Any  # the torch.distributed work, None when nothing was sent
+    out: torch.Tensor
+
+    def wait(self):
+        if self.work is not None:
+            self.work.wait()
+            self.work = None
+        return self.out
+
+
 @dataclasses.dataclass(frozen=True)
 class ProcessMesh:
     """The (py, px) mesh of the world's ranks and this rank's place in it.
@@ -151,6 +168,31 @@ class ProcessMesh:
             dist.all_reduce(t, group=self.group)
         return t
 
+    def all_to_all(self, inp, out=None, async_op=False):
+        """Split inp's first dim into `size` equal chunks, send chunk r to
+        rank r and receive rank s's chunk for this rank as chunk s of the
+        output (one all_to_all_single with equal splits); inp contiguous.
+        `out`: a contiguous buffer shaped like inp to receive into, else a
+        fresh one. Returns the output, or with async_op a PendingAllToAll.
+        A world of one is the identity (inp itself) and calls no
+        collective."""
+        if self.size == 1:
+            return PendingAllToAll(None, inp) if async_op else inp
+        out = torch.empty_like(inp) if out is None else out
+        work = dist.all_to_all_single(out, inp, group=self.group, async_op=async_op)
+        return PendingAllToAll(work, out) if async_op else out
+
+    def local_rows(self, x):
+        """This rank's block of rows of the global array x (first dim
+        divisible by the world size; ranks in order)."""
+        n = x.shape[0] // self.size
+        return x[self.rank * n : (self.rank + 1) * n]
+
+    def global_rows_like(self, t):
+        """An empty CPU tensor of t's dtype shaped like the global array
+        whose block of rows t is."""
+        return torch.empty((t.shape[0] * self.size, *t.shape[1:]), dtype=t.dtype)
+
     def local_patch(self, x):
         """This rank's (..., my, mx) view of the global array x (grid dims
         last, each divisible by the mesh)."""
@@ -186,3 +228,15 @@ def gather_field(x, mesh: ProcessMesh):
         return None
     rows = [torch.cat(parts[j * mesh.px : (j + 1) * mesh.px], dim=-1) for j in range(mesh.py)]
     return torch.cat(rows, dim=-2)
+
+
+def gather_rows(x, mesh: ProcessMesh):
+    """The global array from every rank's block of rows x (equal shapes,
+    ranks in order), on every rank, on x's device. Collective: every rank
+    calls it. Setup, output and tests only."""
+    if mesh.size == 1:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.size)]
+    dist.all_gather(parts, x, group=mesh.group)
+    return torch.cat(parts)

@@ -18,17 +18,20 @@ where rnorm0 is the norm of the (preconditioned, for left-PC solvers)
 right-hand side. CG/MINRES/GMRES track the preconditioned residual norm;
 FGMRES (right PC) tracks the true residual norm.
 
-Distributed vectors (parallel/dist.py): inside `distributed(mesh)` every
-grid-shaped leaf (ndim >= 2: a field (2, my, mx), a batch (k, 2, my, mx))
-is this rank's patch of a global vector and every 1-D leaf (the KKT
-multipliers) is replicated, equal on every rank. All reductions go
-through `tdot`, `_kdot` and `_basis_dots`, which then sum the patch parts
-over the ranks with one all_reduce (the JAX package's psum), never a
-gather; every rank gets the same sums, so every rank takes the same
-branches. Each solver enters the context of its operator's mesh itself
-(`reduces_over_ranks`). Outside the context nothing changes: no
-collective and no extra sync. The distributed operators sum their own
-products over the ranks (parallel/dist.py).
+Distributed vectors (parallel/dist.py, parallel/dist_csr.py): a
+distributed operator declares, leaf by leaf, how its vectors lie over the
+ranks (`dist_leaves`): "patch" (this rank's patch of a global grid field),
+"rows" (this rank's block of rows of a global vector) or None (replicated,
+equal on every rank, as the KKT multipliers); a (k, ...) batch follows its
+columns. Each solver (and `precond.estimate_lmax`) enters `distributed`
+with its operator's mesh and declaration (`reduces_over_ranks`), the one
+place that decides; inside it the reductions `tdot`, `_kdot` and
+`_basis_dots` sum the rank-local parts over the ranks with one all_reduce
+(the JAX package's psum), never a gather, and add the replicated parts.
+Every rank gets the same sums, so every rank takes the same branches. An
+operator without a mesh runs with no distribution: no collective and no
+extra sync. The distributed operators sum their own products over the
+ranks (parallel/dist.py).
 """
 from __future__ import annotations
 
@@ -75,59 +78,75 @@ def _leaves(v):
     return v if isinstance(v, tuple) else (v,)
 
 
-# the ProcessMesh of the distributed solve in progress, or None
-_MESH = contextvars.ContextVar("krylov_mesh", default=None)
+@dataclasses.dataclass(frozen=True)
+class Distribution:
+    """How the vectors of the solve in progress lie over the ranks of
+    `mesh` (a parallel.mesh.ProcessMesh): per leaf, "patch", "rows" or
+    None (see the module docstring)."""
+
+    mesh: Any
+    leaves: tuple
+
+
+# the Distribution of the solve in progress, or None
+_DIST = contextvars.ContextVar("krylov_distribution", default=None)
+
+
+def distribution() -> Optional[Distribution]:
+    """The Distribution that the reductions use here, or None."""
+    return _DIST.get()
 
 
 @contextlib.contextmanager
-def distributed(mesh):
-    """Within the block, reductions sum patch leaves over the ranks of
-    `mesh` (a parallel.mesh.ProcessMesh; see the module docstring)."""
-    token = _MESH.set(mesh)
+def distributed(mesh, leaves=("patch",)):
+    """Within the block, reductions sum the rank-local leaves over the
+    ranks of `mesh`; `leaves` declares each leaf's layout ("patch", "rows"
+    or None = replicated). mesh None: no distribution in the block."""
+    token = _DIST.set(None if mesh is None else Distribution(mesh, tuple(leaves)))
     try:
         yield
     finally:
-        _MESH.reset(token)
+        _DIST.reset(token)
 
 
 def reduces_over_ranks(fn):
-    """Run fn(A, ...) inside `distributed(mesh)` when its operator A has a
-    mesh (a distributed operator, or a bound method of one such as
-    `matmat_field`); otherwise call fn as it is. Every solver (and
-    `precond.estimate_lmax`) enters the context here, and nowhere else."""
+    """Run fn(A, ...) inside `distributed(mesh, A.dist_leaves)` of its
+    operator A (a distributed operator, or a bound method of one such as
+    `matmat_field`); an operator without a mesh runs with no distribution.
+    Every solver, `precond.estimate_lmax` and the refinement loops enter
+    the context here, and nowhere else."""
     @functools.wraps(fn)
     def run(A, *args, **kwargs):
-        mesh = getattr(getattr(A, "__self__", A), "mesh", None)
-        if mesh is None:
-            return fn(A, *args, **kwargs)
-        with distributed(mesh):
+        op = getattr(A, "__self__", A)
+        mesh = getattr(op, "mesh", None)
+        with distributed(mesh, op.dist_leaves if mesh is not None else ()):
             return fn(A, *args, **kwargs)
 
     return run
 
 
-def _sum_leaves(dots, template):
-    """Sum per-leaf partial dots: the patch parts summed over the ranks by
-    one all_reduce (in place on their fresh sum), then the replicated
-    parts added."""
-    mesh = _MESH.get()
-    patch = rep = None
-    for d, leaf in zip(dots, template):
-        if mesh is not None and leaf.ndim >= 2:
-            patch = d if patch is None else patch + d
+def _sum_leaves(dots):
+    """Sum per-leaf partial dots: the rank-local parts summed over the
+    ranks by one all_reduce (in place on their fresh sum), then the
+    replicated parts added."""
+    d = _DIST.get()
+    kinds = (None,) * len(dots) if d is None else d.leaves
+    local = rep = None
+    for dot, kind in zip(dots, kinds, strict=True):
+        if kind is not None:
+            local = dot if local is None else local + dot
         else:
-            rep = d if rep is None else rep + d
-    if patch is not None:
-        patch = mesh.all_reduce(patch)
+            rep = dot if rep is None else rep + dot
+    if local is not None:
+        local = d.mesh.all_reduce(local)
     if rep is None:
-        return patch
-    return rep if patch is None else patch + rep
+        return local
+    return rep if local is None else local + rep
 
 
 def tdot(x, y):
     """Inner product over all leaves, as a 0-d tensor."""
-    xs = _leaves(x)
-    return _sum_leaves([torch.dot(a.reshape(-1), b.reshape(-1)) for a, b in zip(xs, _leaves(y))], xs)
+    return _sum_leaves([torch.dot(a.reshape(-1), b.reshape(-1)) for a, b in zip(_leaves(x), _leaves(y))])
 
 
 def tnorm(x):
@@ -272,7 +291,7 @@ def cg(
 
 def _kdot(x, y):
     """Per-column dot over a leading-k batch: (k, ...) -> (k,)."""
-    return _sum_leaves([torch.sum((x * y).reshape(x.shape[0], -1), dim=1)], [x])
+    return _sum_leaves([torch.sum((x * y).reshape(x.shape[0], -1), dim=1)])
 
 
 def _kax(a, x, y):
@@ -453,8 +472,7 @@ def minres(
 
 def _basis_dots(V, k, w):
     """<V_i, w> for the first k basis vectors in one product per leaf, (k,)."""
-    ws = _leaves(w)
-    return _sum_leaves([buf[:k] @ leaf.reshape(-1) for buf, leaf in zip(V, ws)], ws)
+    return _sum_leaves([buf[:k] @ leaf.reshape(-1) for buf, leaf in zip(V, _leaves(w))])
 
 
 def _basis_axpy(V, coefs, w):

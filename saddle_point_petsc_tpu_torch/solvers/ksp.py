@@ -1,6 +1,7 @@
 """KSP: options-configured Krylov solve driver (PyTorch twin of
-`saddle_point_petsc_tpu.solvers.ksp`), serial and on the distributed
-stencil operators (parallel/dist.py).
+`saddle_point_petsc_tpu.solvers.ksp`), serial, on the distributed stencil
+operators (parallel/dist.py) and on the row-partitioned DistAIJ
+(parallel/dist_csr.py).
 
 Supported options (prefix-scoped):
   -ksp_type {cg,minres,gmres,fgmres,bcgs,richardson,chebyshev}  [gmres]
@@ -40,10 +41,18 @@ local solves with -pc_bjacobi_local_its [8]) and ilu (= bjacobi + ILU(0));
 the Schur fieldsplit on a DistSaddleOperator. sor, fieldsplit, mg and gamg
 there raise NotImplementedError naming their ROADMAP item.
 
+On a DistAIJ (MATMPIAIJ, parallel/dist_csr.py): none, jacobi, chebyshev
+(no -pc_chebyshev_esteig: the JAX package's estimate needs a grid),
+bjacobi (one block per rank: -sub_pc_type ilu [default] -> per-rank ILU(0)
+with -pc_ilu_sweeps, any other -> Chebyshev local solves with
+-pc_bjacobi_local_its [8]) and ilu (= bjacobi + ILU(0)); gamg raises
+NotImplementedError naming its ROADMAP item, sor and fieldsplit the JAX
+package's ValueError.
+
 `KSP.mat_solve` (KSPMatSolve) solves for a batch of k right-hand sides
 with the pseudo-block CG (-ksp_type cg only, as in the JAX package) on a
-stencil, CSR or DIA operator; none and jacobi scale the whole batch, any
-other PC applies column by column.
+stencil, CSR, DIA or DistAIJ operator; none and jacobi scale the whole
+batch, any other PC applies column by column.
 """
 from __future__ import annotations
 
@@ -56,6 +65,7 @@ import torch
 from saddle_point_petsc_tpu_torch.ops import sparse as sp
 from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator
 from saddle_point_petsc_tpu_torch.parallel.dist import DistStencilOperator, dist_block_jacobi
+from saddle_point_petsc_tpu_torch.parallel.dist_csr import DistAIJ, dist_aij_block_jacobi, dist_aij_ilu0
 from saddle_point_petsc_tpu_torch.solvers import krylov, precond
 from saddle_point_petsc_tpu_torch.solvers.amg import amg_pc
 from saddle_point_petsc_tpu_torch.solvers.ilu_stencil import dist_ilu0, stencil_ilu0
@@ -88,6 +98,8 @@ def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
             f"-pc_type {pc_type} on a distributed stencil operator is ROADMAP.md "
             f"{_DIST_LATER[pc_type]}"
         )
+    if isinstance(A, DistAIJ) and pc_type == "gamg":
+        raise NotImplementedError("-pc_type gamg on a DistAIJ (the distributed gamg) is ROADMAP.md A.21")
 
     if isinstance(A, SaddleOperator):
         if pc_type != "fieldsplit":
@@ -129,6 +141,10 @@ def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
         # PETSc's parallel bjacobi takes its per-block solver from
         # -sub_pc_type (ilu by default, as PETSc)
         sub = opts.get_str("sub_pc_type", "ilu")
+        if isinstance(A, DistAIJ):  # one block per rank
+            if sub == "ilu":
+                return dist_aij_ilu0(A, sweeps=opts.get_int("pc_ilu_sweeps", 6))
+            return dist_aij_block_jacobi(A, iters=opts.get_int("pc_bjacobi_local_its", 8))
         if isinstance(A, DistStencilOperator):  # one block per rank
             if sub == "ilu":
                 return dist_ilu0(A, sweeps=opts.get_int("pc_ilu_sweeps", 6))
@@ -141,6 +157,9 @@ def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
         raise ValueError("bjacobi PC requires stencil or CSR operator")
     if pc_type == "ilu":
         sweeps = opts.get_int("pc_ilu_sweeps", 6)
+        if isinstance(A, DistAIJ):
+            # PETSc's parallel ilu: bjacobi with a per-rank ILU(0)
+            return dist_aij_ilu0(A, sweeps=sweeps)
         if isinstance(A, DistStencilOperator):
             # PETSc's parallel ilu: bjacobi with a per-patch ILU(0)
             return dist_ilu0(A, sweeps=sweeps)
@@ -256,7 +275,9 @@ class KSP:
         B is (k, 2, ny, nx) for a stencil operator, whose batched product
         is `matmat_field` (kernel B2 on a CUDA device), and (k, n) for
         the others, whose batched product is `A.matmat` on the transposed
-        view of the batch, without a copy (kernel B6 for a CUDA DIA). The
+        view of the batch, without a copy (kernel B6 for a CUDA DIA); for
+        a DistAIJ, B is this rank's (k, n_loc) rows and the product its
+        bound `matmat_batch`, through which cg_multi finds the mesh. The
         elementwise PCs (none, jacobi) scale the whole batch at once, with
         each column's bits; the others apply column by column."""
         if self.ksp_type != "cg":
@@ -269,6 +290,8 @@ class KSP:
         A, M = self.A, self.M
         if isinstance(A, (StencilOperator, DistStencilOperator)):
             Ab = A.matmat_field
+        elif isinstance(A, DistAIJ):
+            Ab = A.matmat_batch
         else:
             def Ab(X):
                 return A.matmat(X.T).T

@@ -625,9 +625,10 @@ def estimate_lmax(A, M=None, iters=10, generator=None, template=None):
     takes a PRNG key. The loop stays on the device and syncs once, at the
     end.
 
-    For a distributed A (one with a mesh) the template's fields are patches:
-    every rank draws the global start vector from the same generator and
-    keeps its patch, and the norms sum over the ranks, so the estimate is
+    For a distributed A (one with a mesh) the template's leaves lie as A
+    declares (`krylov.distribution()`): every rank draws the global start
+    vector from the same generator and keeps its patch or rows of each
+    rank-local leaf, and the norms sum over the ranks, so the estimate is
     the serial one of the global operator.
     """
     if template is None:
@@ -635,13 +636,17 @@ def estimate_lmax(A, M=None, iters=10, generator=None, template=None):
     M = M or IdentityPC()
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    mesh = getattr(A, "mesh", None)
-    if mesh is None:
+    d = krylov.distribution()
+    if d is None:
         v = _start_vector(template, generator)
-    else:  # fields (ndim >= 2) are patches, 1-D leaves replicated
+    else:
         leaves = template if isinstance(template, tuple) else (template,)
-        draw = _start_vector(tuple(mesh.global_like(a) if a.ndim >= 2 else a for a in leaves), generator)
-        v = tuple((mesh.local_patch(g) if a.ndim >= 2 else g).to(a.device).contiguous() for g, a in zip(draw, leaves))
+        layouts = {"patch": (d.mesh.global_like, d.mesh.local_patch),
+                   "rows": (d.mesh.global_rows_like, d.mesh.local_rows),
+                   None: (lambda a: a, lambda g: g)}
+        kinds = [layouts[k] for k in d.leaves]
+        draw = _start_vector(tuple(glob(a) for (glob, _), a in zip(kinds, leaves, strict=True)), generator)
+        v = tuple(loc(g).to(a.device).contiguous() for (_, loc), g, a in zip(kinds, draw, leaves))
         v = v if isinstance(template, tuple) else v[0]
     lam = None
     for _ in range(iters):

@@ -52,7 +52,9 @@ def _refine(residual, correct, x, bnorm, rtol, max_cycles):
     corrections, stopping once |r| <= rtol * bnorm.
 
     residual(x) -> r (float64); correct(r) -> (dx, its) with dx float32.
-    Returns (x, cycles, inner iterations, history)."""
+    Its norms sum over the ranks of the distribution its caller entered
+    (`krylov.reduces_over_ranks`). Returns (x, cycles, inner iterations,
+    history)."""
     history, inner_total, cycles = [], 0, 0
     for _ in range(max_cycles):
         r = residual(x)
@@ -74,6 +76,7 @@ def _to(v, dtype):
     return tuple(t.to(dtype) for t in v) if isinstance(v, tuple) else v.to(dtype)
 
 
+@krylov.reduces_over_ranks
 def solve_refined(A, b_df, inner_solve: Callable, rtol=1e-8, max_cycles=10, matvec_df: Callable = None):
     """Iterative refinement on a (2, ny, nx)-field operator.
 
@@ -82,7 +85,11 @@ def solve_refined(A, b_df, inner_solve: Callable, rtol=1e-8, max_cycles=10, matv
     else its planes widened to float64. b_df: the float64 right-hand side.
     inner_solve: r32 -> (dx32, iterations), e.g. `inner_cg`. matvec_df:
     an optional float64 matvec replacing the stencil planes' one, with
-    which A may be any operator (only the inner solve uses it).
+    which A may be any operator (only the inner solve uses it), such as a
+    float64 DistAIJ beside a float32 one (parallel/dist_csr.py: the JAX
+    package's `dist_aij_matvec_df`). For a distributed A (one with a mesh)
+    the vectors are this rank's parts and every residual norm sums over
+    its ranks.
     """
     if matvec_df is None:
         planes_df = getattr(A, "planes_df", None)
@@ -131,6 +138,7 @@ def _kkt_residual(K, b_df, planes_df, Bf_df):
     return residual
 
 
+@krylov.reduces_over_ranks
 def solve_refined_kkt(K, b_df, inner_solve, rtol=1e-8, max_cycles=12, planes_df=None, Bf_df=None):
     """Iterative refinement for the KKT system [[A, B^T], [B, 0]].
 

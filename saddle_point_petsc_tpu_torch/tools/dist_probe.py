@@ -1,8 +1,9 @@
-"""Measure the distributed stencil path on CUDA cards.
+"""Measure the distributed paths on CUDA cards.
 
     python -m saddle_point_petsc_tpu_torch.tools.dist_probe overhead
     python -m saddle_point_petsc_tpu_torch.tools.dist_probe mesh [--ranks 4]
     python -m saddle_point_petsc_tpu_torch.tools.dist_probe cli [--repeats 3]
+    python -m saddle_point_petsc_tpu_torch.tools.dist_probe aij [--ranks 4]
 
 `overhead` (one card, a world of one on NCCL): the host time of one
 all_reduce of a 0-d tensor, of a halo exchange with no neighbours, and of
@@ -25,6 +26,17 @@ over NCCL against the same command over gloo on the CPU (equal its= line,
 VTK values to 1e-8 of max|u|), then config 4 at 704^2 f32 on N ranks and
 on one rank: iterations, KSPSolve seconds and ms per iteration from
 -log_view.
+
+`aij` (as many cards as ranks): the row-partitioned DistAIJ route
+(-mat_type aij -dist, parallel/dist_csr.py) under `python -m
+torch.distributed.run --standalone --nproc_per_node N`. First CG +
+bjacobi (per-rank ILU(0)) at 65^2 f64 to rtol 1e-8 over NCCL against the
+same command over gloo on the CPU (equal its= line, VTK values within 1e-9
+of max|u|), then the 704^2 f32 route (BASELINE config 4's grid, 991,232
+rows) to rtol 1e-5 with CG + Jacobi and CG + bjacobi on N ranks and on one
+(`aij-rank`, one process per rank): iterations, ms per iteration, each
+rank's ghost_count, and the host microseconds of one ghost exchange
+(gather, all_to_all, wait) and of one matvec.
 
 Every time is on the host clock around synchronized device work; the
 card's name and power limit are printed with them.
@@ -141,9 +153,9 @@ def cli_runs(repeats, side=704):
             dist.destroy_process_group()
 
 
-def _torchrun(n, argv, cwd, env=None):
+def _torchrun(n, argv, cwd, env=None, module="saddle_point_petsc_tpu_torch.cli"):
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(n),
-           "-m", "saddle_point_petsc_tpu_torch.cli"] + argv
+           "-m", module] + argv
     print("$ " + " ".join(cmd[1:]), flush=True)
     t0 = time.perf_counter()
     p = subprocess.run(cmd, cwd=cwd, env={**os.environ, **(env or {})}, capture_output=True, text=True,
@@ -194,9 +206,78 @@ def mesh_runs(ranks):
                   f"{t / int(k) * 1e3:.4f} ms/it ({card}, each rank its own card)")
 
 
+AIJ_SMALL = ["-mat_type", "aij", "-da_grid_x", "65", "-da_grid_y", "65", "-dtype", "f64", "-ksp_type", "cg",
+             "-pc_type", "bjacobi", "-ksp_rtol", "1e-8", "-ksp_converged_reason", "-dist"]
+
+
+def aij_rank(side=704):
+    """One rank of the 704^2 f32 -mat_type aij -dist route, under torchrun:
+    the CLI with CG + Jacobi and CG + bjacobi, then one ghost exchange and
+    one matvec timed on the last run's operator; rank 0 prints every rank's
+    numbers."""
+    import torch.distributed as dist
+
+    from saddle_point_petsc_tpu_torch import cli
+    from saddle_point_petsc_tpu_torch.parallel import mesh as pmesh
+
+    dev, created = pmesh.init_from_env(torch.device("cuda"))
+    try:
+        world, rank = dist.get_world_size(), dist.get_rank()
+        argv = ["-device", "cuda", "-mat_type", "aij", "-dist", "-da_grid_x", str(side), "-da_grid_y", str(side),
+                "-dtype", "f32", "-ksp_type", "cg", "-ksp_rtol", "1e-5", "-log_view", "-no_vtk"]
+        lines = []
+        for pc in ("jacobi", "bjacobi"):
+            run = cli.run(argv + ["-pc_type", pc])
+            its, res = run.result.iterations, run.result
+            setup, solve = (run.log.phases[p].total_s for p in ("PCSetUp", "KSPSolve"))
+            lines.append(f"{side}^2 f32 CG + {pc} on {world} rank(s): {its} its, {res.reason_name()}, PCSetUp "
+                         f"{setup:.3f} s, KSPSolve {solve:.4f} s, {solve / its * 1e3:.4f} ms/it")
+        A = run.problem.A
+        x = torch.randn((A.n_loc,), device=dev)
+        t_x = _host_us(lambda: A._exchange_start(x).wait(), n=200) if A.has_ghosts else None
+        t_mv = _host_us(lambda: A.matvec(x), n=200)
+        mine = (A.ghost_count, t_x, t_mv)
+        everyone = [mine]
+        if world > 1:
+            everyone = [None] * world
+            dist.all_gather_object(everyone, mine)
+        if rank == 0:
+            card = _card()
+            for ln in lines:
+                print(f"{ln} ({card}, each rank its own card)")
+            for r, (g, tx, tm) in enumerate(everyone):
+                ex = "no exchange (no rank has an off-diag entry)" if tx is None else f"{tx:.1f} us a ghost exchange"
+                print(f"  rank {r}: ghost_count {g}, {ex}, {tm:.1f} us a matvec (host clock, 200 in a row)")
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def aij_runs(ranks):
+    card = _card()
+    pkg = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = {"PYTHONPATH": pkg + os.pathsep + os.environ.get("PYTHONPATH", ""), "OMP_NUM_THREADS": "1"}
+    its = re.compile(r"its=(\d+), reason=(\w+)")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {}
+        for device in ("cuda", "cpu"):
+            path = os.path.join(tmp, f"{device}.vtk")
+            out[device] = (its.findall(_torchrun(ranks, ["-device", device, "-vtk", path] + AIJ_SMALL, tmp, env)),
+                           _vtk_values(path))
+        (its_g, (geo_g, v_g)), (its_c, (geo_c, v_c)) = out["cuda"], out["cpu"]
+        dv = float(np.max(np.abs(v_g - v_c)) / np.max(np.abs(v_c)))
+        print(f"65^2 f64 -mat_type aij -dist CG + bjacobi on {ranks} ranks: NCCL {its_g}, gloo {its_c}, VTK geometry "
+              f"equal {geo_g == geo_c}, max|u_nccl - u_gloo| / max|u| = {dv:.3e} ({card})")
+        # the ranks' sums reduce in another order on NCCL than on gloo: counts within 1
+        if abs(int(its_g[0][0]) - int(its_c[0][0])) > 1 or geo_g != geo_c or not dv <= 1e-9:
+            raise SystemExit("NCCL and gloo disagree")
+        for n in (ranks, 1):
+            _torchrun(n, ["aij-rank"], tmp, env, module="saddle_point_petsc_tpu_torch.tools.dist_probe")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("mode", choices=("overhead", "cli", "mesh"))
+    ap.add_argument("mode", choices=("overhead", "cli", "mesh", "aij", "aij-rank"))
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args(argv)
@@ -204,6 +285,10 @@ def main(argv=None):
         overhead()
     elif args.mode == "cli":
         cli_runs(args.repeats)
+    elif args.mode == "aij":
+        aij_runs(args.ranks)
+    elif args.mode == "aij-rank":
+        aij_rank()
     else:
         mesh_runs(args.ranks)
 

@@ -189,22 +189,23 @@ def test_device_cuda_without_card_raises(argv):
     ],
 )
 def test_later_slices_raise_not_implemented(capsys, extra):
-    """MATMPIAIJ (-mat_type aij -dist) is a later slice and raises, naming
-    its ROADMAP item. -dist runs, in a world of one (gloo, an in-process
-    store, destroyed at the end), and -mesh alone is not read (as in the
-    JAX CLI): both give the serial route's its= line and solution bits."""
+    """-dist runs, in a world of one (gloo, an in-process store, destroyed
+    at the end), and -mesh alone is not read (as in the JAX CLI): both give
+    the serial route's its= line and solution bits. MATMPIAIJ (-mat_type
+    aij -dist, a DistAIJ) runs too and gives the serial -mat_type aij
+    route's its= line."""
     import torch.distributed as dist
 
     argv = ["-device", "cpu", "-no_vtk"] + extra
-    if "aij" in extra:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.20"):
-            tcli.main(argv)
-        return
     run = tcli.run(argv)
     its = ITS.findall(capsys.readouterr().out)
-    serial = tcli.run(["-device", "cpu", "-no_vtk"])
+    serial = tcli.run(["-device", "cpu", "-no_vtk"] + [t for t in extra if t not in ("-dist", "-mesh", "2,2")])
     assert run.rc == 0 and len(its) == 1 and its == ITS.findall(capsys.readouterr().out)
-    assert torch.equal(run.result.x, serial.result.x)
+    if "aij" in extra:
+        assert type(run.problem.A).__name__ == "DistAIJ"
+        torch.testing.assert_close(run.result.x[: serial.result.x.shape[0]], serial.result.x, rtol=0, atol=1e-12)
+    else:
+        assert torch.equal(run.result.x, serial.result.x)
     assert not dist.is_initialized()
 
 

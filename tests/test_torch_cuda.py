@@ -474,3 +474,68 @@ def test_dist_cli_world_of_one_on_card(nccl_world):
     assert d.rc == s.rc == 0 and d.result.iterations == s.result.iterations
     assert launches >= d.result.iterations
     assert _within(d.result.x[0].cpu(), s.result.x[0].cpu(), 1e-6)
+
+
+def _q1_dist_aij(mesh, n, dtype, dia="auto"):
+    from saddle_point_petsc_tpu_torch.parallel import dist_csr
+
+    csr = poisson.assemble_poisson_csr(n - 1, n - 1, dtype=dtype, device=mesh.device)[0]
+    return csr, dist_csr.dist_aij_from_scipy(sparse.csr_to_scipy(csr), mesh, dtype=dtype, dia=dia)
+
+
+def test_make_mesh_1d_default_device_is_the_card(nccl_world):
+    """make_mesh_1d() with no device holds its rows on the current card."""
+    from saddle_point_petsc_tpu_torch.parallel import dist_csr
+
+    m = dist_csr.make_mesh_1d()
+    assert m.device == nccl_world.device and m.shape == (1, 1)
+    _, A = _q1_dist_aij(m, 17, torch.float32)
+    assert A.diag_vals_t.is_cuda and A.dia_data.is_cuda and A.diagonal().is_cuda
+
+
+@pytest.mark.parametrize("dtype,tol", _F32_F64)
+@pytest.mark.parametrize("bands", ["auto", "off"])
+def test_dist_aij_world_of_one_on_card(nccl_world, dtype, tol, bands):
+    """A DistAIJ in a world of one on the card: its matvec launches B3
+    (banded copy) or B5 (ELL) once and matches the serial CSR matvec, its
+    matmat at k = 4 launches B6 once on the banded copy, and its per-rank
+    ILU(0) apply launches B5 2 x 6 times; each against its plain version
+    (the CPU build of the same operator)."""
+    import dataclasses
+
+    from saddle_point_petsc_tpu_torch.parallel import dist_csr
+
+    csr, A = _q1_dist_aij(nccl_world, 33, dtype, bands)
+    cpu = dataclasses.replace(nccl_world, device=torch.device("cpu"))
+    A_cpu = dist_csr.dist_aij_from_scipy(sparse.csr_to_scipy(csr), cpu, dtype=dtype, dia=bands)
+    x = torch.randn((A.n_pad,), dtype=dtype, device=nccl_world.device)
+    for mod in (dia, ell, dia_spmm):
+        mod.reset_launches()
+    y = A.matvec(x)
+    assert (dia.launches, ell.launches) == ((1, 0) if bands == "auto" else (0, 1))
+    assert _within(y.cpu(), csr.matvec(x).cpu(), tol) and _within(y.cpu(), A_cpu.matvec(x.cpu()), tol)
+    X = torch.randn((A.n_pad, 4), dtype=dtype, device=nccl_world.device)
+    dia_spmm.reset_launches()
+    Y = A.matmat(X)
+    assert dia_spmm.launches == (1 if bands == "auto" else 0)
+    assert _within(Y.cpu(), A_cpu.matmat(X.cpu()), tol)
+    M, M_cpu = dist_csr.dist_aij_ilu0(A, sweeps=6), dist_csr.dist_aij_ilu0(A_cpu, sweeps=6)
+    ell.reset_launches()
+    z = M(x)
+    assert ell.launches == 12
+    assert _within(z.cpu(), M_cpu(x.cpu()), tol)
+
+
+def test_dist_aij_cli_world_of_one_on_card(nccl_world):
+    """The CLI's -mat_type aij -dist at 65^2 on the card in the world of one
+    against the serial -mat_type aij route: the same iteration count (f64,
+    CG + Jacobi), B3 launched every iteration."""
+    common = ["-device", "cuda", "-mat_type", "aij", "-da_grid_x", "65", "-da_grid_y", "65", "-dtype", "f64",
+              "-ksp_type", "cg", "-ksp_rtol", "1e-8", "-no_vtk"]
+    dia.reset_launches()
+    d = cli.run(common + ["-dist"])
+    launches = dia.launches
+    s = cli.run(common)
+    assert d.rc == s.rc == 0 and d.result.iterations == s.result.iterations
+    assert launches >= d.result.iterations
+    assert _within(d.result.x.cpu(), s.result.x.cpu(), 1e-9)
