@@ -146,6 +146,23 @@ Phases (each passes or raises; the script exits non-zero on any failure):
     serial, dist: iterations, reason, Assembly, PCSetUp and KSPSolve
     seconds, ms per iteration, B3/B5/B6 launches per iteration and the f64
     true residual.
+22. The distributed gamg (solvers/amg.py's dist_amg_pc) in a world of one
+    on NCCL (its own FileStore and group, destroyed at the end): (a) the
+    JAX bench's gamg_* workload (bench.py:895-939), the 1024^2 5-point
+    Poisson (1,048,576 rows) in f32, CG to rtol 1e-6 under the streaming
+    and the global setup: iterations, reason, PCSetUp and KSPSolve
+    seconds, the levels (rows, banded B3 or ELL B5 and its width), B3 and
+    B5 launches per iteration, the f64 true residual; (b) the CLI at 704^2
+    f64 (the Q1 operator, 991,232 rows), -mat_type aij -dist -pc_type gamg
+    with -pc_gamg_setup global and stream beside the serial -mat_type aij
+    -pc_type gamg, CG to rtol 1e-8 on the unpreconditioned norm, run dist,
+    serial, serial, dist: the f64 true residual at most 1e-6, the global
+    count within 1 of the serial one and the stream count within 1 of the
+    global one (the coarsest level passes the 4096-row cap:
+    SplitCoarseInverse); (c) one DistAMGPC apply at 1024^2 f64: exactly
+    six B3 or B5 launches a level and two B5, its device time, and its
+    result against the same hierarchy built on a CPU mesh; (d)
+    graft_entry.dryrun_multichip() and entry() on the card.
 
 Each kernel's timing runs in the order plain, kernel, library, library,
 kernel, plain (medians of 60 launches each) and prints the kernel's
@@ -179,7 +196,7 @@ import torch
 import torch.distributed as tdist
 import torch.nn.functional as F
 
-from saddle_point_petsc_tpu_torch import cli
+from saddle_point_petsc_tpu_torch import cli, graft_entry
 from saddle_point_petsc_tpu_torch.models import poisson
 from saddle_point_petsc_tpu_torch.ops import sparse
 from saddle_point_petsc_tpu_torch.ops.cuda import _build, bdia, dia, dia_spmm, ell, spmm, spmv
@@ -1662,6 +1679,172 @@ def phase_aij_dist(dev, tmp, card):
         raise AssertionError("the process group outlived phase 21")
 
 
+GAMG_DIST_GRID = 1024  # phase 22: the JAX bench's gamg_* workload, 1,048,576 rows (bench.py:895-939)
+
+
+def _poisson5(n, dtype):
+    """The JAX bench's gamg matrix: the n^2 5-point operator with 4 on each
+    1-D diagonal (bench.py:915-917)."""
+    t = sps.diags([-1.0, 4.0, -1.0], [-1, 0, 1], (n, n))
+    return (sps.kron(sps.identity(n), t) + sps.kron(t, sps.identity(n))).tocsr().astype(dtype)
+
+
+def _dist_gamg_levels(M):
+    """Each level of a DistAMGPC: rows and format (banded: B3; ELL: B5, with
+    its width), then the coarse solve."""
+    out = []
+    for k, lvl in enumerate(M.levels):
+        A = lvl.A
+        fmt = (f"banded, B3, {len(A.dia_offsets)} bands" if A.dia_data is not None
+               else f"ELL, B5, width {A.diag_cols_t.shape[0]}")
+        out.append(f"level {k}: {A.shape[0]} rows ({fmt}), P and R ELL (B5) to {lvl.n_pad_c}")
+    ci = M.coarse_inv
+    split = f", {ci.iso.shape[0]} decoupled rows + dense {ci.rest.shape[0]}" if hasattr(ci, "iso") else ""
+    out.append(f"coarse: {ci.shape[0]} rows, {type(ci).__name__}{split}")
+    return "; ".join(out)
+
+
+def _apply_launches(M):
+    """The kernel launches of one DistAMGPC V-cycle in a world of one (no
+    ghosts): on each level six level matvecs (two Chebyshev steps before
+    and after, two residuals; B3 when banded, else B5) and one each of R
+    and P (B5)."""
+    want = {"B3": 0, "B5": 0}
+    for lvl in M.levels:
+        want["B3" if lvl.A.dia_data is not None else "B5"] += 6
+        want["B5"] += 2
+    return {k: v for k, v in want.items() if v}
+
+
+def _gamg_bench(dev, mesh, card):
+    """Phase 22 (a): the JAX bench's gamg workload, stream and global setups.
+    Returns the stream run's launch counts."""
+    n = GAMG_DIST_GRID
+    a = _poisson5(n, np.float32)
+    A = dist_csr.dist_aij_from_scipy(a, mesh)
+    b = dist_csr.pad_vector(np.ones(a.shape[0], np.float32), A.n_pad, mesh)
+    a64 = a.astype(np.float64)
+    stream_counts = None
+    for setup in ("stream", "global"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        M = amg.dist_amg_pc(A, setup=setup)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        t_solve = []
+        # the first solve after a setup pays one-time costs; the second is
+        # the JAX bench's warm gamg_solve_s
+        for _ in range(2):
+            _reset_counts()
+            t0 = time.perf_counter()
+            res = krylov.cg(A, b, M=M, rtol=1e-6, maxiter=100)
+            torch.cuda.synchronize()
+            t_solve.append(time.perf_counter() - t0)
+        counts = _counts()
+        its = res.iterations
+        x = res.x.double().cpu().numpy()[: a.shape[0]]
+        true_rel = float(np.linalg.norm(1.0 - a64 @ x) / np.sqrt(a.shape[0]))
+        print(f"  {n}^2 f32 5-point ({a.shape[0]} rows) CG + dist gamg, setup={setup}: {its} its, "
+              f"{res.reason_name()}, PCSetUp {t_setup:.3f} s, KSPSolve {t_solve[1]:.4f} s warm "
+              f"({t_solve[1] / its * 1e3:.3f} ms/it; the first solve {t_solve[0]:.4f} s), launches per "
+              f"iteration B3 {counts['B3'] / its:.2f}, B5 {counts['B5'] / its:.2f}, true residual {true_rel:.3e} "
+              f"(f64) ({card})")
+        print("    " + _dist_gamg_levels(M))
+        # an f32 solution of a well-conditioned (diagonally dominant) system
+        if res.reason_name() != "CONVERGED_RTOL" or not true_rel <= 1e-4:
+            raise AssertionError(f"setup={setup}: {res.reason_name()}, true residual {true_rel}")
+        if counts["B3"] < its or counts["B5"] < its:
+            raise AssertionError(f"setup={setup}: B3 {counts['B3']}, B5 {counts['B5']} launches for {its} its")
+        if setup == "stream":
+            stream_counts = counts
+        del M
+    return stream_counts
+
+
+def _gamg_cli(card):
+    """Phase 22 (b): the CLI route -mat_type aij -dist -pc_type gamg at 704^2
+    f64, both setups, beside the serial -mat_type aij -pc_type gamg."""
+    n = AIJ_GRID
+    common = ["-device", "cuda", "-mat_type", "aij", "-da_grid_x", str(n), "-da_grid_y", str(n), "-dtype", "f64",
+              "-ksp_type", "cg", "-pc_type", "gamg", "-ksp_rtol", "1e-8", "-ksp_norm_type", "unpreconditioned",
+              "-ksp_converged_reason", "-log_view", "-no_vtk"]
+    extra = {"dist global": ["-dist", "-pc_gamg_setup", "global"], "dist stream": ["-dist", "-pc_gamg_setup", "stream"],
+             "serial": []}
+    its = {}
+    # host-bound times vary between runs: dist, serial, serial, dist
+    for label in ("dist global", "dist stream", "serial", "serial", "dist stream", "dist global"):
+        run, counts = _cli(common + extra[label], ("B3", "B5"))
+        res, M = run.result, run.ksp.M
+        t_asm, t_setup, t_solve = (run.log.phases[p].total_s for p in ("Assembly", "PCSetUp", "KSPSolve"))
+        true_rel = _true_rel_aij(run)
+        k = res.iterations
+        print(f"  {n}^2 f64 -mat_type aij CG + gamg, {label}: {k} its, {res.reason_name()}, Assembly {t_asm:.3f} s, "
+              f"PCSetUp {t_setup:.3f} s, KSPSolve {t_solve:.4f} s, {t_solve / k * 1e3:.4f} ms/it, launches in the "
+              f"run B3 {counts['B3']}, B5 {counts['B5']} (the stream setup's power iterations among them), true "
+              f"residual {true_rel:.3e} (f64) ({card})")
+        if label in its:
+            if k != its[label]:
+                raise AssertionError(f"{label}: {k} its, the first run took {its[label]}")
+        else:
+            print("    " + (_dist_gamg_levels(M) if label != "serial" else
+                            f"{len(M.levels)} levels, coarse {type(M.coarse_inv).__name__}"))
+        if label.startswith("dist") != isinstance(run.problem.A, dist_csr.DistAIJ) or (
+                label.startswith("dist") and type(M).__name__ != "DistAMGPC"):
+            raise AssertionError(f"{label}: the run took the wrong route")
+        if not true_rel <= 1e-6:
+            raise AssertionError(f"{label}: true residual {true_rel} > 1e-6")
+        its[label] = k
+    print(f"  CG + gamg at 704^2 f64: dist global {its['dist global']}, dist stream {its['dist stream']}, serial "
+          f"{its['serial']} its")
+    if abs(its["dist global"] - its["serial"]) > 1 or abs(its["dist stream"] - its["dist global"]) > 1:
+        raise AssertionError(f"gamg counts differ by more than 1: {its}")
+
+
+def _gamg_apply(dev, mesh, card):
+    """Phase 22 (c): one DistAMGPC apply at 1024^2 f64 (the streaming
+    setup): exact launches, device time, and the CPU build's result."""
+    a = _poisson5(GAMG_DIST_GRID, np.float64)
+    A = dist_csr.dist_aij_from_scipy(a, mesh)
+    M = amg.dist_amg_pc(A, setup="stream")
+    cpu_mesh = dataclasses.replace(mesh, device=torch.device("cpu"))
+    M_cpu = amg.dist_amg_pc(dist_csr.dist_aij_from_scipy(a, cpu_mesh), setup="stream")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    r = torch.randn((A.n_pad,), generator=gen, dtype=torch.float64, device=dev)
+    want = _apply_launches(M)
+    z = _aij_launch("DistAMGPC apply", lambda: M(r), want)
+    _compare("DistAMGPC apply on the card against the CPU build", z.cpu(), M_cpu(r.cpu()), torch.float64)
+    t = _median_ms(lambda: M(r))
+    print(f"  DistAMGPC apply, {GAMG_DIST_GRID}^2 f64, {len(M.levels)} levels: launches {want}, {t * 1e3:.1f} us "
+          f"(device, median of 60, CUDA events), equal to the CPU build to 1e-12 of max|z| ({card})")
+
+
+def phase_gamg_dist(dev, tmp, card):
+    """Phase 22: the distributed gamg in a world of one on NCCL."""
+    tdist.init_process_group("nccl", store=tdist.FileStore(os.path.join(tmp, "nccl_store_gamg"), 1), rank=0,
+                             world_size=1, device_id=dev, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = dist_csr.make_mesh_1d()
+        if tdist.get_backend() != "nccl" or mesh.device.type != "cuda":
+            raise AssertionError(f"backend {tdist.get_backend()}, mesh on {mesh.device}")
+        counts = _gamg_bench(dev, mesh, card)
+        _gamg_cli(card)
+        _gamg_apply(dev, mesh, card)
+        # (d) the twin of the JAX package's entry hooks
+        out = graft_entry.dryrun_multichip(dev)
+        step, operands = graft_entry.entry(dev)
+        (u, _), rnorm = step(*operands)
+        print(f"  graft_entry.dryrun_multichip() on NCCL, world of one: {out}; entry(): x {tuple(u.shape)} on "
+              f"{u.device}, rnorm {rnorm:.3e}")
+        if not (u.is_cuda and np.isfinite(rnorm)):
+            raise AssertionError(f"entry(): x on {u.device}, rnorm {rnorm}")
+    finally:
+        tdist.destroy_process_group()
+    if tdist.is_initialized():
+        raise AssertionError("the process group outlived phase 22")
+    return counts
+
+
 def main():
     t_start = time.perf_counter()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1708,6 +1891,9 @@ def main():
         t0 = time.perf_counter()
         phase_aij_dist(dev, tmp, card)
         print(f"phase 21: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dist_gamg_counts = phase_gamg_dist(dev, tmp, card)
+        print(f"phase 22: {time.perf_counter() - t0:.1f} s ({card})")
 
     def row(name, source, replaces, launches, err, numbers):
         return {
@@ -1717,7 +1903,9 @@ def main():
             "launches": launches, "max_abs_err": err, **numbers,
         }
 
-    b3_launches = gamg_counts["B3"]
+    # phase 8's CG + gamg and phase 22's CG + distributed gamg (stream)
+    b3_launches = gamg_counts["B3"] + dist_gamg_counts["B3"]
+    b5_launches = gamg_counts["B5"] + dist_gamg_counts["B5"]
     b3_err = max(sparse_err["B3"], level_err["B3"])
     b5_err = max(spmm_err["B5"], level_err["B5"])
     f32 = torch.float32
@@ -1733,7 +1921,7 @@ def main():
             sparse_timings["B4", f32]),
         row("stencil_spmm (B2)", "stencil_spmm.cu", "spmm.py:30", b2_launches, spmm_err["B2"],
             spmm_timings["B2", f32]),
-        row("ell_spmv (B5)", "ell_spmv.cu", "spmv.py:150", gamg_counts["B5"], b5_err,
+        row("ell_spmv (B5)", "ell_spmv.cu", "spmv.py:150", b5_launches, b5_err,
             spmm_timings["B5", f32]),
         row("dia_spmm (B6)", "dia_spmm.cu", "spmm.py:97", b6_launches, spmm_err["B6"],
             spmm_timings["B6", f32]),

@@ -31,7 +31,12 @@ gathers (XLA in the JAX package, outside any Pallas kernel).
 Setup is host numpy, as in the JAX package: every rank runs the same
 vectorized plan on the global scipy matrix and keeps its rows, so the
 statics (kd, ko, max_send, the band offsets) are global and every rank's
-shapes agree. `exchange_triplets` routes COO triplets to their row owners
+shapes agree. `dist_aij_from_rows` builds the same plan from each rank's
+own rows alone (MatCreateMPIAIJWithArrays: the statics reduced over the
+ranks, the ghost requests shipped to their owners), and `fetch_rows`
+brings a rank the rows it names from their owners: the streaming gamg
+setup (solvers/amg.py) builds every level with them.
+`exchange_triplets` routes COO triplets to their row owners
 with all_to_all on the device (MatSetValues' stash-and-ship);
 `DistAIJILU0PC` is block-Jacobi with a per-rank ILU(0) of the diag block
 (PETSc's parallel default), applied with zero collectives.
@@ -219,13 +224,8 @@ class DistAIJ:
     def to_scipy(self):
         """The global (true-size) matrix on the host, on every rank.
         Collective; setup and output only (MatView, AMG setup)."""
-        part = self.to_scipy_rows()
-        parts = [part]
-        if self.ndev > 1:
-            parts = [None] * self.ndev
-            dist.all_gather_object(parts, part, group=self.mesh.group)
         m, n = self.shape
-        return sps.vstack(parts).tocsr()[:m, :n]
+        return gather_scipy_rows(self.to_scipy_rows(), self.mesh)[:m, :n]
 
     def diag_block_operator(self):
         """The block-diagonal part, the off-diag block dropped: the ranks
@@ -239,6 +239,17 @@ class DistAIJ:
 # ---------------------------------------------------------------------------
 # Host setup: the plan of the JAX package, each rank keeping its rows
 # ---------------------------------------------------------------------------
+
+
+def gather_scipy_rows(part, mesh: ProcessMesh):
+    """Every rank's scipy block of rows `part`, stacked in rank order, as
+    one CSR on every rank (one all_gather_object; none in a world of
+    one). Collective; setup and output only."""
+    parts = [part]
+    if mesh.size > 1:
+        parts = [None] * mesh.size
+        dist.all_gather_object(parts, part, group=mesh.group)
+    return sps.vstack(parts).tocsr()
 
 
 def _band_entries(dc, n_loc):
@@ -456,6 +467,91 @@ def dist_aij_from_scipy(a, mesh: ProcessMesh, dtype=None, dia="auto") -> DistAIJ
     )
 
 
+def _most(rows):
+    """The largest number of entries in one row (0 for none)."""
+    return int(np.bincount(rows).max()) if len(rows) else 0
+
+
+def dist_aij_from_rows(a_rows, n_cols, mesh: ProcessMesh, dtype=None, dia="auto", n_rows=None) -> DistAIJ:
+    """This rank's DistAIJ from its own block of rows, no rank seeing
+    another's (PETSc's MatCreateMPIAIJWithArrays).
+
+    a_rows: this rank's (n_loc, >= n_cols) scipy block of the (n_rows,
+    n_cols) matrix (n_rows None: square), rows block-partitioned as in
+    dist_aij_from_scipy, columns global ids; square matrices get its
+    identity padding rows. dtype and dia as in dist_aij_from_scipy.
+
+    The statics and the plan equal dist_aij_from_scipy's on the matrix the
+    blocks make up, field by field: kd, ko, max_send and whether any rank
+    has an off-diag entry come from one all_reduce MAX, before anything
+    is allocated; each rank asks the owners for its ghost columns,
+    ascending within each owner, in one all_to_all of (world, max_send)
+    ids (-1 past the request), and its send_idx row for a requester is
+    that request in that order; the band test runs over every rank's
+    bands (`dist_aij_to_dia`). Collective; setup.
+    """
+    m = n_cols if n_rows is None else n_rows
+    n = n_cols
+    ndev, rank, dev = mesh.size, mesh.rank, mesh.device
+    n_loc, n_loc_c = -(-m // ndev), -(-n // ndev)
+    a = sps.csr_matrix(a_rows)
+    if a.shape[0] != n_loc:
+        raise ValueError(f"dist_aij_from_rows: rank {rank} holds {a.shape[0]} rows; {m} rows over {ndev} ranks "
+                         f"give {n_loc} a rank")
+    a.sum_duplicates()
+    a.sort_indices()
+    square = m == n
+    dtype = _np_dtype(dtype or a.dtype)
+    lo = rank * n_loc
+    rows = np.repeat(np.arange(n_loc, dtype=np.int64), np.diff(a.indptr))
+    cols = a.indices.astype(np.int64)
+    vals = a.data.astype(dtype)
+    if square:
+        pad_r = np.arange(max(m - lo, 0), n_loc, dtype=np.int64)
+        rows = np.concatenate([rows, pad_r])
+        cols = np.concatenate([cols, lo + pad_r])
+        vals = np.concatenate([vals, np.ones(len(pad_r), dtype)])
+
+    isdiag = cols // n_loc_c == rank
+    orow, ocol, oval = rows[~isdiag], cols[~isdiag], vals[~isdiag]
+    need = np.unique(ocol)  # this rank's ghost columns, ascending
+    src = need // n_loc_c
+    grp = np.bincount(src, minlength=ndev)
+    stats = torch.tensor([_most(rows[isdiag]), _most(orow), int(grp.max()), len(orow)], dtype=torch.int64,
+                         device=dev)
+    kd, ko, max_send, any_off = mesh.all_reduce(stats, op=dist.ReduceOp.MAX).tolist()
+    diag_cols, diag_vals = _ell_pack(rows[isdiag], (cols[isdiag] % n_loc_c).astype(np.int32), vals[isdiag], n_loc,
+                                     max(1, kd), dtype)
+    if any_off:
+        ko, max_send = max(1, ko), max(1, max_send)
+        slot = np.arange(len(need)) - (np.cumsum(grp) - grp)[src]
+        gidx = (src * max_send + slot)[np.searchsorted(need, ocol)].astype(np.int32)
+        off_cols, off_vals = _ell_pack(orow, gidx, oval, n_loc, ko, dtype)
+        req = np.full((ndev, max_send), -1, np.int64)
+        req[src, slot] = need
+        asked = _host(mesh.all_to_all(torch.from_numpy(req.reshape(-1)).to(dev))).reshape(ndev, max_send)
+        send_idx = np.where(asked >= 0, asked - rank * n_loc_c, 0)
+        # a padding slot holds the owner's first row, as dist_aij_from_scipy's
+        ghost_cols = np.where(req >= 0, req, np.arange(ndev, dtype=np.int64)[:, None] * n_loc_c).reshape(-1)
+    else:
+        send_idx = np.zeros((ndev, 1), np.int64)
+        off_cols, off_vals = np.full((n_loc, 1), -1, np.int32), np.zeros((n_loc, 1), dtype)
+        ghost_cols = np.arange(ndev, dtype=np.int64) * n_loc_c
+
+    def put(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+    A = DistAIJ(put(diag_cols.T), put(diag_vals.T), put(off_cols.T), put(off_vals.T), put(send_idx), ghost_cols,
+                (m, n), n_loc * ndev, mesh, n_pad_col=None if square else n_loc_c * ndev, has_ghosts=bool(any_off))
+    if square and dia in ("auto", "force"):
+        try:
+            A = dist_aij_to_dia(A, max_diag_blowup=2.0 if dia == "auto" else 4.0)
+        except ValueError:
+            if dia == "force":
+                raise
+    return A
+
+
 def pad_vector(b, n_pad, mesh: ProcessMesh, dtype=None):
     """This rank's rows of b (a global (m,) or (m, k) numpy array or
     tensor) zero-padded to n_pad rows, on the mesh's device."""
@@ -515,6 +611,74 @@ def exchange_triplets(rows, cols, vals, mesh: ProcessMesh, n_loc: int, cap: int)
     return bucket(rs, -1), bucket(cs, 0), bucket(vs, 0), overflow
 
 
+def _triplet_cap(rows, n_loc, mesh: ProcessMesh):
+    """The largest bucket any rank ships any other (rows < 0 stay local):
+    exchange_triplets' exact capacity, from one all_reduce MAX."""
+    dest = torch.where(rows >= 0, torch.div(rows, n_loc, rounding_mode="floor"), mesh.rank)
+    biggest = torch.bincount(dest.long(), minlength=mesh.size).max().reshape(1)
+    return max(1, int(mesh.all_reduce(biggest, op=dist.ReduceOp.MAX).item()))
+
+
+def ship_triplets(rows, cols, vals, n_loc: int, mesh: ProcessMesh):
+    """`exchange_triplets` of host numpy triplets at the exact capacity:
+    the (rows, cols, vals) this rank received, on the host, padding
+    dropped. Collective."""
+    r, c, v = (torch.from_numpy(np.ascontiguousarray(t)).to(mesh.device) for t in (rows, cols, vals))
+    r, c, v, _ = exchange_triplets(r, c, v, mesh, n_loc, _triplet_cap(r, n_loc, mesh))
+    r, c, v = _host(r), _host(c), _host(v)
+    keep = r >= 0
+    return r[keep], c[keep], v[keep]
+
+
+def _route(dest, fields, mesh: ProcessMesh):
+    """Ship variable-length host data: entry e of every field (numpy (E,)
+    arrays) goes to rank dest[e]. The counts travel first (one
+    all_to_all), then each field in equal-split buckets of the largest
+    count any rank sends any other (one all_reduce MAX, one all_to_all a
+    field), on the mesh's device. Returns (src, fields): the entries this
+    rank received, by source rank and in each source's order, and each
+    one's source rank. A world of one ships nothing."""
+    if mesh.size == 1:
+        return np.zeros(len(dest), np.int64), list(fields)
+    ndev, dev = mesh.size, mesh.device
+    cnt = np.bincount(dest, minlength=ndev)
+    cnt_t = torch.from_numpy(cnt).to(dev)
+    got = _host(mesh.all_to_all(cnt_t))
+    cap = int(mesh.all_reduce(cnt_t.max().reshape(1), op=dist.ReduceOp.MAX).item())
+    order = np.argsort(dest, kind="stable")
+    ds = dest[order]
+    slot = np.arange(len(ds)) - (np.cumsum(cnt) - cnt)[ds]
+    keep = np.arange(cap) < got[:, None]
+    out = []
+    for f in fields:
+        if cap == 0:
+            out.append(f[:0])
+            continue
+        b = np.zeros((ndev, cap), f.dtype)
+        b[ds, slot] = f[order]
+        out.append(_host(mesh.all_to_all(torch.from_numpy(b.reshape(-1)).to(dev))).reshape(ndev, cap)[keep])
+    return np.nonzero(keep)[0], out
+
+
+def fetch_rows(a_rows, want, mesh: ProcessMesh):
+    """The rows with the distinct global ids `want` of the matrix whose
+    (n_loc, n) scipy block of rows each rank holds as a_rows (block
+    partition, global column ids), from the ranks that own them: a CSR
+    (len(want), n) in want's order. Collective: every rank calls it with
+    its own want. Requests and rows travel as variable-length buckets,
+    counts first (`_route`)."""
+    a = sps.csr_matrix(a_rows)
+    n_loc = a.shape[0]
+    want = np.asarray(want, np.int64)
+    asker, (ids,) = _route(want // n_loc, [want], mesh)
+    sub = a[ids - mesh.rank * n_loc]
+    cnt = np.diff(sub.indptr)
+    _, (r, c, v) = _route(np.repeat(asker, cnt), [np.repeat(ids, cnt), sub.indices.astype(np.int64), sub.data],
+                          mesh)
+    order = np.argsort(want)
+    return sps.csr_matrix((v, (order[np.searchsorted(want[order], r)], c)), shape=(len(want), a.shape[1]))
+
+
 def dist_aij_from_coo(rows, cols, vals, n, mesh: ProcessMesh, cap=None, dtype=None) -> DistAIJ:
     """Distributed assembly: the device triplet exchange, then the host plan.
 
@@ -529,11 +693,7 @@ def dist_aij_from_coo(rows, cols, vals, n, mesh: ProcessMesh, cap=None, dtype=No
     n_loc = -(-n // ndev)
     rows, cols, vals = (torch.as_tensor(t).to(mesh.device) for t in (rows, cols, vals))
     if cap is None:
-        dest = torch.where(rows >= 0, torch.div(rows, n_loc, rounding_mode="floor"), mesh.rank)
-        biggest = torch.bincount(dest.long(), minlength=ndev).max().reshape(1)
-        if ndev > 1:
-            dist.all_reduce(biggest, op=dist.ReduceOp.MAX, group=mesh.group)
-        cap = max(1, int(biggest.item()))
+        cap = _triplet_cap(rows, n_loc, mesh)
     r, c, v, overflow = exchange_triplets(rows, cols, vals, mesh, n_loc, int(cap))
     if overflow.item():
         raise ValueError(f"exchange_triplets overflow: bucket capacity {cap} too small")

@@ -161,11 +161,12 @@ class ProcessMesh:
             return j * self.px + i
         return None
 
-    def all_reduce(self, t):
-        """Sum `t` over the ranks, in place (one all_reduce); returns t. A
-        world of one is the identity and calls no collective."""
+    def all_reduce(self, t, op=dist.ReduceOp.SUM):
+        """Reduce `t` over the ranks by `op` (a sum by default), in place
+        (one all_reduce); returns t. A world of one is the identity and
+        calls no collective."""
         if self.size > 1:
-            dist.all_reduce(t, group=self.group)
+            dist.all_reduce(t, op=op, group=self.group)
         return t
 
     def all_to_all(self, inp, out=None, async_op=False):

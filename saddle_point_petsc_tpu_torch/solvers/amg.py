@@ -1,5 +1,6 @@
-"""Algebraic multigrid, smoothed aggregation, serial (PyTorch twin of the
-serial part of `saddle_point_petsc_tpu.solvers.amg`; PETSc -pc_type gamg).
+"""Algebraic multigrid, smoothed aggregation (PyTorch twin of
+`saddle_point_petsc_tpu.solvers.amg`; PETSc -pc_type gamg), serial and
+over row-partitioned DistAIJs.
 
 - **Setup runs on the host**, as PETSc's PCSetUp does, with the JAX
   package's numpy/scipy algorithm: strength graph, greedy aggregation
@@ -17,7 +18,15 @@ serial part of `saddle_point_petsc_tpu.solvers.amg`; PETSc -pc_type gamg).
 
 V-cycle (or W-cycle) with R = P^T and the same symmetric Chebyshev
 smoother before and after, so the PC is SPD for SPD A (valid under CG and
-MINRES). The distributed hierarchy (`dist_amg_pc`) is a later slice.
+MINRES).
+
+The distributed hierarchy (`dist_amg_pc`, PCGAMG on MATMPIAIJ) stores each
+level, P and R = P^T as DistAIJs (parallel/dist_csr.py) and applies them
+with the DistAIJ matvec. Its setup is either the serial pipeline on the
+global matrix, every rank keeping its rows ("global"), or a level at a
+time from each rank's own rows ("stream", -pc_gamg_setup stream). gamg
+refuses a distributed stencil operator, as in the JAX package (`_to_scipy`
+raises TypeError).
 """
 from __future__ import annotations
 
@@ -34,6 +43,8 @@ from saddle_point_petsc_tpu_torch.ops.stencil import (
     flat_to_field,
     stencil_to_coo,
 )
+from saddle_point_petsc_tpu_torch.parallel import dist_csr
+from saddle_point_petsc_tpu_torch.parallel import mesh as pmesh
 from saddle_point_petsc_tpu_torch.solvers import precond
 
 
@@ -347,6 +358,34 @@ def _scipy_to_level_op(Asp, dtype, device, max_diag_blowup=4.0, max_diags=512):
     return _EllOp(_scipy_to_ell(Asp, dtype, device))
 
 
+def _coarsen(Asp, theta):
+    """One smoothed-aggregation coarsening of the f64 host matrix Asp: None
+    when no coarsening is possible (e.g. a diagonal matrix), else (agg,
+    na, svec, d, rho, omega, P, Ac): the aggregates and their count, the
+    tentative prolongator's column scaling 1/sqrt(|aggregate|), the
+    diagonal (zeros as 1), rho(D^-1 A), omega = 4/3 / rho, the smoothed
+    prolongator P = (I - omega D^-1 A) P0 and the Galerkin product
+    P^T A P."""
+    import scipy.sparse as sps
+
+    n = Asp.shape[0]
+    agg, na = _aggregate(_strength_graph(Asp, theta))
+    if na >= n:
+        return None
+    # tentative piecewise-constant prolongator, columns normalized
+    sizes = np.bincount(agg, minlength=na).astype(np.float64)
+    svec = 1.0 / np.sqrt(sizes[agg])
+    P0 = sps.csr_matrix((svec, (np.arange(n), agg)), shape=(n, na))
+    rho = _rho_dinv_a(Asp)
+    omega = 4.0 / (3.0 * rho)
+    d = Asp.diagonal()
+    d = np.where(d == 0.0, 1.0, d)
+    P = (P0 - omega * (sps.diags(1.0 / d) @ (Asp @ P0))).tocsr()
+    Ac = (P.T @ Asp @ P).tocsr()
+    Ac.eliminate_zeros()
+    return agg, na, svec, d, rho, omega, P, Ac
+
+
 _NP_TO_TORCH = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
 
 
@@ -372,8 +411,6 @@ def amg_pc(
     device). Options, by PETSc PCGAMG names: -pc_gamg_threshold,
     -pc_gamg_coarse_eq_limit, -pc_mg_levels, -pc_mg_cycles (1 = V,
     2 = W), -pc_gamg_smooth_its (the smoother's Chebyshev degree)."""
-    import scipy.sparse as sps
-
     if opts is not None:
         theta = opts.get_float("pc_gamg_threshold", theta)
         coarse_max = opts.get_int("pc_gamg_coarse_eq_limit", coarse_max)
@@ -386,23 +423,10 @@ def amg_pc(
     dtype = op_dtype if dtype is None else dtype
     levels = []
     while len(levels) < max_levels - 1 and Asp.shape[0] > coarse_max:
-        n = Asp.shape[0]
-        S = _strength_graph(Asp, theta)
-        agg, na = _aggregate(S)
-        if na >= n:  # no coarsening possible (e.g. a diagonal matrix)
+        step = _coarsen(Asp, theta)
+        if step is None:
             break
-        # tentative piecewise-constant prolongator, columns normalized
-        sizes = np.bincount(agg, minlength=na).astype(np.float64)
-        svec = 1.0 / np.sqrt(sizes[agg])
-        P0 = sps.csr_matrix((svec, (np.arange(n), agg)), shape=(n, na))
-        # smooth: P = (I - omega D^-1 A) P0,  omega = (4/3) / rho(D^-1 A)
-        rho = _rho_dinv_a(Asp)
-        omega = 4.0 / (3.0 * rho)
-        d = Asp.diagonal()
-        d = np.where(d == 0.0, 1.0, d)
-        P = (P0 - omega * (sps.diags(1.0 / d) @ (Asp @ P0))).tocsr()
-        Ac = (P.T @ Asp @ P).tocsr()
-        Ac.eliminate_zeros()
+        agg, na, svec, d, rho, omega, _, Ac = step
         # level smoother: Chebyshev(Jacobi) on [rho/4, 1.1 rho]
         A_op = _scipy_to_level_op(Asp, dtype, device)
         inv_diag = torch.tensor(1.0 / d, dtype=dtype, device=device)
@@ -424,3 +448,263 @@ def amg_pc(
     coarse_inv = _coarse_inverse(Asp, dtype, device)
     field_shape = tuple(A.grid_shape) if isinstance(A, StencilOperator) else None
     return AMGPC(tuple(levels), coarse_inv, cycles, field_shape)
+
+
+# ---------------------------------------------------------------------------
+# Distributed AMG: gamg over DistAIJ (MATMPIAIJ)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DistAMGLevel:
+    """One level over row-partitioned DistAIJs, this rank's rows of each."""
+
+    A: Any  # DistAIJ, the level operator
+    P: Any  # DistAIJ (n_f, n_c): coarse -> fine, columns padded to the next level's n_pad
+    R: Any  # DistAIJ (n_c, n_f) = P^T: fine -> coarse, columns padded to this level's n_pad
+    smoother: Any  # precond.ChebyshevPC over A
+    n_pad_c: int  # the next level's padded length
+
+
+@dataclasses.dataclass(frozen=True)
+class DistAMGPC:
+    """Smoothed-aggregation AMG over DistAIJ operators (PETSc PCGAMG on a
+    parallel MATAIJ); vectors are this rank's rows. Every level matvec,
+    restriction and prolongation is a DistAIJ matvec: B3 or B5 on the
+    local block, and where any rank has ghosts one all_to_all and B5 on
+    them. The smoothers are inner-product free. The coarse solve gathers
+    the coarse vector (one all_gather; none in a world of one), applies
+    the replicated inverse and keeps this rank's rows."""
+
+    levels: Tuple[DistAMGLevel, ...]
+    coarse_inv: Any  # (n_pad, n_pad) inverse of the coarsest level, pad rows identity: dense or SplitCoarseInverse
+    mesh: Any
+    cycles: int = 1  # PETSc PCMGSetCycleType: 1 = V, 2 = W
+
+    def __call__(self, r):
+        # an empty hierarchy: the coarse solve is exact
+        return self._vcycle(0, r) if self.levels else self._coarse(r)
+
+    def _coarse(self, r):
+        lo = self.mesh.rank * r.shape[0]
+        return (self.coarse_inv @ pmesh.gather_rows(r, self.mesh))[lo : lo + r.shape[0]]
+
+    def _vcycle(self, k, r):
+        if k == len(self.levels):
+            return self._coarse(r)
+        lvl = self.levels[k]
+        z = lvl.smoother(r)
+        # R and P are rectangular: restriction lands in the coarse padded
+        # length and prolongation consumes it, each O(P nnz)
+        rc = lvl.R.matvec(r - lvl.A.matvec(z))
+        zc = self._vcycle(k + 1, rc)
+        if self.cycles >= 2 and k + 1 < len(self.levels):
+            zc = zc + self._vcycle(k + 1, rc - self.levels[k + 1].A.matvec(zc))
+        z = z + lvl.P.matvec(zc)
+        return z + lvl.smoother(r - lvl.A.matvec(z))
+
+
+def _dist_level(A, P, R, inv_diag, rho, smooth_its, nxt):
+    """A DistAMGLevel with its Chebyshev(Jacobi) smoother on [rho/4,
+    1.1 rho]; inv_diag is this rank's (n_loc,) host rows of D^-1."""
+    assert P.n_pad_c == nxt.n_pad and R.n_pad_c == A.n_pad, "transfer paddings disagree with the levels'"
+    inner = precond.JacobiPC(torch.tensor(inv_diag, dtype=A.diag_vals_t.dtype, device=A.mesh.device))
+    sm = precond.ChebyshevPC(A, inner, lmin=rho / 4.0, lmax=1.1 * rho, iters=smooth_its)
+    return DistAMGLevel(A, P, R, sm, nxt.n_pad)
+
+
+def _padded_coarse_inverse(Asp, n_pad, dtype, device):
+    """`_coarse_inverse` of the coarsest level with its pad rows the
+    identity, as the JAX package's np.eye(n_pad)."""
+    inv = _coarse_inverse(Asp.astype(np.float64), dtype, device)
+    n = Asp.shape[0]
+    if isinstance(inv, SplitCoarseInverse):
+        pad = torch.arange(n, n_pad, device=device)
+        return dataclasses.replace(inv, iso=torch.cat([inv.iso, pad]),
+                                   iso_inv=torch.cat([inv.iso_inv, inv.iso_inv.new_ones(n_pad - n)]))
+    dense = torch.eye(n_pad, dtype=dtype, device=device)
+    dense[:n, :n] = inv  # in place: dense is the fresh identity made above
+    return dense
+
+
+def _rho_dinv_a_device(A, d, iters=15):
+    """Power-iteration estimate of rho(D^-1 A) with the DistAIJ matvec, d
+    this rank's (n_loc,) host diagonal: no host matrix. lam stays on the
+    device and is read once, at the end; each step's norm is one
+    all_reduce (none in a world of one).
+
+    The start vector is the JAX package's, np.random.default_rng(0) over
+    the global n: each rank draws all of it and keeps its rows. That costs
+    O(n) host time a rank, not O(nnz), and keeps rho equal to the JAX
+    package's."""
+    mesh, dtype = A.mesh, A.diag_vals_t.dtype
+    np_dtype = dist_csr._np_dtype(dtype)
+    dinv = torch.tensor(1.0 / d, dtype=dtype, device=mesh.device)
+    v = dist_csr.pad_vector(np.random.default_rng(0).standard_normal(A.shape[0]).astype(np_dtype), A.n_pad, mesh)
+    for _ in range(iters):
+        w = dinv * A.matvec(v)
+        lam = torch.sqrt(mesh.all_reduce(torch.dot(w, w)))
+        v = w / lam
+    return max(lam.item(), 1e-30)
+
+
+def _dist_amg_stream_level(A, theta, smooth_its):
+    """One SA-AMG level from this rank's rows alone: no rank holds the
+    global matrix, and every host step is O(local nnz).
+
+    rho(D^-1 A) comes from the DistAIJ power iteration. Aggregation runs
+    on this rank's diag block, so aggregates never cross ranks (as in the
+    JAX package; PCGAMG's do). The aggregates are numbered from one
+    all_reduce of the counts; P0's aggregate and weight at the ghost
+    columns come through A's own ghost scatter; the rows of P = (I -
+    omega D^-1 A) P0 at the ghost columns from their owners
+    (`fetch_rows`); the Galerkin contributions P_s^T (A_s P) and R's
+    triplets (P's, transposed) go to their row owners
+    (`ship_triplets`), and each rank builds its rows of P, R and Ac
+    (`dist_aij_from_rows`).
+
+    Returns (level, next level's DistAIJ, its f64 host rows, this rank's
+    global aggregate ids), or None when the ranks coarsen nothing."""
+    import scipy.sparse as sps
+
+    mesh, dtype = A.mesh, A.diag_vals_t.dtype
+    np_dtype = dist_csr._np_dtype(dtype)
+    rank, n, n_loc = mesh.rank, A.shape[0], A.n_loc
+    lo = rank * n_loc
+    m_s = max(min(lo + n_loc, n) - lo, 0)  # this rank's true rows
+    d = dist_csr._host(A.diagonal()).astype(np.float64)
+    d = np.where(d == 0.0, 1.0, d)
+    rho = _rho_dinv_a_device(A, d)
+    omega = 4.0 / (3.0 * rho)
+
+    blk = A.to_scipy_rows()[:m_s]
+    agg, na = (0, 0) if m_s == 0 else _aggregate(_strength_graph(blk[:, lo : lo + m_s].tocsr(), theta))
+    counts = torch.zeros(mesh.size, dtype=torch.int64, device=mesh.device)
+    counts[rank] = na
+    counts = dist_csr._host(mesh.all_reduce(counts))
+    na_tot = int(counts.sum())
+    if na_tot == 0 or na_tot >= n:
+        return None
+    own = np.full(n_loc, -1, np.int64)  # P0's column at each row of this rank
+    own[:m_s] = agg + counts[:rank].sum()
+    s_own = np.zeros(n_loc)
+    s_own[:m_s] = 1.0 / np.sqrt(np.bincount(agg, minlength=na).astype(np.float64)[agg]) if m_s else 0.0
+
+    # A_s P0, P0's rows at the ghost columns coming through A's scatter;
+    # every ghost slot (padding too) holds its ghost_cols column's value
+    coo = blk.tocoo()
+    col = coo.col.astype(np.int64)
+    ghost = col // A.n_loc_c != rank
+    pos = col - lo
+    if ghost.any():
+        uc, first = np.unique(A.ghost_cols, return_index=True)
+        pos[ghost] = n_loc + first[np.searchsorted(uc, col[ghost])]
+    p0_col = np.concatenate([own, _ghost_values(A, own)])[pos]
+    p0_val = np.concatenate([s_own, _ghost_values(A, s_own)])[pos]
+    AP0 = sps.csr_matrix((coo.data * p0_val, (coo.row, p0_col)), shape=(m_s, na_tot))
+    P0_s = sps.csr_matrix((s_own[:m_s], (np.arange(m_s), own[:m_s])), shape=(m_s, na_tot))
+    P_s = (P0_s - omega * (sps.diags(1.0 / d[:m_s]) @ AP0)).tocsr()
+
+    # Galerkin: P_s^T (A_s P), P's rows at the ghost columns from their owners
+    P_rows = sps.vstack([P_s, sps.csr_matrix((n_loc - m_s, na_tot))]).tocsr()
+    need = np.unique(col[ghost])
+    P_ghost = dist_csr.fetch_rows(P_rows, need, mesh)
+    cpos = np.where(ghost, m_s + np.searchsorted(need, col), col - lo)
+    A_c = sps.csr_matrix((coo.data, (coo.row, cpos)), shape=(m_s, m_s + len(need)))
+    contrib = (P_s.T @ (A_c @ sps.vstack([P_s, P_ghost]))).tocoo()
+    n_loc_c = -(-na_tot // mesh.size)
+    r, c, v = dist_csr.ship_triplets(contrib.row.astype(np.int64), contrib.col.astype(np.int64), contrib.data,
+                                     n_loc_c, mesh)
+    Ac_rows = sps.csr_matrix((v, (r - rank * n_loc_c, c)), shape=(n_loc_c, na_tot))  # duplicates summed
+    Ac_rows.eliminate_zeros()
+    pt = P_s.tocoo()
+    r, c, v = dist_csr.ship_triplets(pt.col.astype(np.int64), pt.row.astype(np.int64) + lo, pt.data, n_loc_c, mesh)
+    R_rows = sps.csr_matrix((v, (r - rank * n_loc_c, c)), shape=(n_loc_c, n))
+
+    Pd = dist_csr.dist_aij_from_rows(P_rows, na_tot, mesh, dtype=np_dtype, n_rows=n)
+    Rd = dist_csr.dist_aij_from_rows(R_rows, n, mesh, dtype=np_dtype, n_rows=na_tot)
+    nxt = dist_csr.dist_aij_from_rows(Ac_rows, na_tot, mesh, dtype=np_dtype)
+    return _dist_level(A, Pd, Rd, 1.0 / d, rho, smooth_its, nxt), nxt, Ac_rows, own[:m_s]
+
+
+def _ghost_values(A, v):
+    """The values at A's ghost slots of the vector whose rows this rank
+    holds as v (numpy (n_loc,)): A's own ghost scatter, on the host; empty
+    when no rank has ghosts."""
+    pending = A._exchange_start(torch.from_numpy(v).to(A.mesh.device))
+    return v[:0] if pending is None else dist_csr._host(pending.wait()).copy()
+
+
+def dist_amg_pc(
+    A,
+    opts=None,
+    a_scipy=None,
+    theta=0.08,
+    coarse_max=500,
+    max_levels=10,
+    smooth_its=2,
+    cycles=1,
+    setup="global",
+) -> DistAMGPC:
+    """The distributed SA-AMG hierarchy of a DistAIJ (host setup, PCSetUp)
+    and its PC on A's device. Options as `amg_pc`, and
+    -pc_gamg_setup {global,stream}:
+
+    - setup="global" (default): every rank takes the global matrix
+      (`a_scipy`, or `A.to_scipy()`) and runs the serial pipeline
+      (`_coarsen`), keeping its rows of P, R = P^T and each Ac
+      (`dist_aij_from_scipy`): the serial hierarchy by construction.
+    - setup="stream": one level at a time from each rank's own rows
+      (`_dist_amg_stream_level`); no rank holds a global matrix but the
+      coarsest level's, gathered for the replicated coarse solve (when no
+      level is built, only if it fits the dense-solve cap, as in the JAX
+      package).
+
+    The coarse solve is dense up to 4096 rows and a SplitCoarseInverse
+    above, where the JAX package raises.
+    """
+    if opts is not None:
+        theta = opts.get_float("pc_gamg_threshold", theta)
+        coarse_max = opts.get_int("pc_gamg_coarse_eq_limit", coarse_max)
+        max_levels = opts.get_int("pc_mg_levels", max_levels)
+        cycles = opts.get_int("pc_mg_cycles", cycles)
+        smooth_its = opts.get_int("pc_gamg_smooth_its", smooth_its)
+        setup = opts.get_str("pc_gamg_setup", setup)
+
+    mesh, dtype = A.mesh, A.diag_vals_t.dtype
+    levels, cur = [], A
+    if setup == "stream":
+        rows = None
+        while len(levels) < max_levels - 1 and cur.shape[0] > coarse_max:
+            out = _dist_amg_stream_level(cur, theta, smooth_its)
+            if out is None:
+                break
+            lvl, cur, rows, _ = out
+            levels.append(lvl)
+        if rows is None:
+            if cur.shape[0] > _COARSE_HARD_CAP:
+                raise ValueError(
+                    "dist_amg_pc(setup='stream'): aggregation produced no coarsening at "
+                    f"{cur.shape[0]} rows (> dense-solve cap {_COARSE_HARD_CAP}); lower "
+                    "-pc_gamg_threshold or raise -pc_gamg_coarse_eq_limit"
+                )
+            rows = cur.to_scipy_rows()
+        n = cur.shape[0]
+        cur_sp = dist_csr.gather_scipy_rows(rows, mesh)[:n, :n]
+    else:
+        np_dtype = dist_csr._np_dtype(dtype)
+        cur_sp = (a_scipy if a_scipy is not None else A.to_scipy()).tocsr().astype(np.float64)
+        while len(levels) < max_levels - 1 and cur_sp.shape[0] > coarse_max:
+            step = _coarsen(cur_sp, theta)
+            if step is None:
+                break
+            _, _, _, d, rho, _, P, Ac = step
+            # rectangular DistAIJ transfers, one copy each: O(P nnz) a transfer
+            Pd = dist_csr.dist_aij_from_scipy(P, mesh, dtype=np_dtype)
+            Rd = dist_csr.dist_aij_from_scipy(P.T.tocsr(), mesh, dtype=np_dtype)
+            nxt = dist_csr.dist_aij_from_scipy(Ac, mesh, dtype=np_dtype)
+            ivd = np.ones(cur.n_pad)  # pad rows: identity scaling
+            ivd[: len(d)] = 1.0 / d
+            levels.append(_dist_level(cur, Pd, Rd, mesh.local_rows(ivd), rho, smooth_its, nxt))
+            cur, cur_sp = nxt, Ac
+    return DistAMGPC(tuple(levels), _padded_coarse_inverse(cur_sp, cur.n_pad, dtype, mesh.device), mesh, cycles)

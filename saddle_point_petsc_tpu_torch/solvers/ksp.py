@@ -26,6 +26,8 @@ Supported options (prefix-scoped):
   -pc_mg_cycles <k> [1]  (mg: V-cycles per apply; gamg: 1 = V, 2 = W)
   -pc_gamg_threshold <t> [0.08]   -pc_gamg_coarse_eq_limit <n> [500]
   -pc_gamg_smooth_its <k> [2]
+  -pc_gamg_setup {global,stream} [global]  (on a DistAIJ; stream: each rank
+           builds the levels from its own rows, O(local nnz))
   -pc_fieldsplit_type {additive,multiplicative} on a stencil [additive];
                       schur on the KKT system
   -pc_fieldsplit_schur_fact_type {diag,lower,upper,full}
@@ -38,16 +40,17 @@ On a DistStencilOperator: none, jacobi, pbjacobi, chebyshev
 (-pc_chebyshev_esteig), bjacobi (one block per rank: -sub_pc_type ilu
 [default] -> per-patch ILU(0) with -pc_ilu_sweeps, any other -> Chebyshev
 local solves with -pc_bjacobi_local_its [8]) and ilu (= bjacobi + ILU(0));
-the Schur fieldsplit on a DistSaddleOperator. sor, fieldsplit, mg and gamg
-there raise NotImplementedError naming their ROADMAP item.
+the Schur fieldsplit on a DistSaddleOperator. sor, fieldsplit and mg there
+raise NotImplementedError naming their ROADMAP item; gamg raises the JAX
+package's TypeError (its setup reads no distributed stencil).
 
 On a DistAIJ (MATMPIAIJ, parallel/dist_csr.py): none, jacobi, chebyshev
 (no -pc_chebyshev_esteig: the JAX package's estimate needs a grid),
 bjacobi (one block per rank: -sub_pc_type ilu [default] -> per-rank ILU(0)
 with -pc_ilu_sweeps, any other -> Chebyshev local solves with
--pc_bjacobi_local_its [8]) and ilu (= bjacobi + ILU(0)); gamg raises
-NotImplementedError naming its ROADMAP item, sor and fieldsplit the JAX
-package's ValueError.
+-pc_bjacobi_local_its [8]), ilu (= bjacobi + ILU(0)) and gamg (the
+distributed hierarchy, `amg.dist_amg_pc`, with -pc_gamg_setup); sor and
+fieldsplit raise the JAX package's ValueError.
 
 `KSP.mat_solve` (KSPMatSolve) solves for a batch of k right-hand sides
 with the pseudo-block CG (-ksp_type cg only, as in the JAX package) on a
@@ -67,7 +70,7 @@ from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator
 from saddle_point_petsc_tpu_torch.parallel.dist import DistStencilOperator, dist_block_jacobi
 from saddle_point_petsc_tpu_torch.parallel.dist_csr import DistAIJ, dist_aij_block_jacobi, dist_aij_ilu0
 from saddle_point_petsc_tpu_torch.solvers import krylov, precond
-from saddle_point_petsc_tpu_torch.solvers.amg import amg_pc
+from saddle_point_petsc_tpu_torch.solvers.amg import amg_pc, dist_amg_pc
 from saddle_point_petsc_tpu_torch.solvers.ilu_stencil import dist_ilu0, stencil_ilu0
 from saddle_point_petsc_tpu_torch.solvers.multigrid import mg_pc
 from saddle_point_petsc_tpu_torch.solvers.operators import SaddleOperator
@@ -80,7 +83,6 @@ _DIST_LATER = {
     "sor": "A.28",
     "fieldsplit": "A.28",
     "mg": "A.29",
-    "gamg": "A.21",
 }
 
 
@@ -98,8 +100,6 @@ def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
             f"-pc_type {pc_type} on a distributed stencil operator is ROADMAP.md "
             f"{_DIST_LATER[pc_type]}"
         )
-    if isinstance(A, DistAIJ) and pc_type == "gamg":
-        raise NotImplementedError("-pc_type gamg on a DistAIJ (the distributed gamg) is ROADMAP.md A.21")
 
     if isinstance(A, SaddleOperator):
         if pc_type != "fieldsplit":
@@ -189,6 +189,8 @@ def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
         return mg_pc(A, opts)
     if pc_type == "gamg":
         # PCGAMG (smoothed aggregation) from the assembled matrix alone
+        if isinstance(A, DistAIJ):
+            return dist_amg_pc(A, opts)
         return amg_pc(A, opts)
     raise ValueError(f"unknown pc_type {pc_type!r}")
 

@@ -4,6 +4,7 @@
     python -m saddle_point_petsc_tpu_torch.tools.dist_probe mesh [--ranks 4]
     python -m saddle_point_petsc_tpu_torch.tools.dist_probe cli [--repeats 3]
     python -m saddle_point_petsc_tpu_torch.tools.dist_probe aij [--ranks 4]
+    python -m saddle_point_petsc_tpu_torch.tools.dist_probe gamg [--ranks 4]
 
 `overhead` (one card, a world of one on NCCL): the host time of one
 all_reduce of a 0-d tensor, of a halo exchange with no neighbours, and of
@@ -37,6 +38,15 @@ rows) to rtol 1e-5 with CG + Jacobi and CG + bjacobi on N ranks and on one
 (`aij-rank`, one process per rank): iterations, ms per iteration, each
 rank's ghost_count, and the host microseconds of one ghost exchange
 (gather, all_to_all, wait) and of one matvec.
+
+`gamg` (as many cards as ranks): the distributed gamg (-mat_type aij
+-dist -pc_type gamg). First CG + gamg with the streaming setup at 65^2
+f64 over NCCL against gloo on the CPU (counts within 1), then
+(`gamg-rank`, one process per rank) the 704^2 Q1 operator in f64
+(991,232 rows) on N ranks and on one: PCSetUp seconds of the global and
+the streaming setup, run global, stream, stream, global; CG to rtol 1e-8
+iterations and ms per iteration; rank 0's host profile of a streaming
+setup.
 
 Every time is on the host clock around synchronized device work; the
 card's name and power limit are printed with them.
@@ -275,9 +285,100 @@ def aij_runs(ranks):
             _torchrun(n, ["aij-rank"], tmp, env, module="saddle_point_petsc_tpu_torch.tools.dist_probe")
 
 
+GAMG_SMALL = ["-mat_type", "aij", "-da_grid_x", "65", "-da_grid_y", "65", "-dtype", "f64", "-ksp_type", "cg",
+              "-pc_type", "gamg", "-pc_gamg_setup", "stream", "-pc_gamg_coarse_eq_limit", "100", "-ksp_rtol", "1e-8",
+              "-ksp_converged_reason", "-dist", "-no_vtk"]
+
+
+def gamg_rank(side=704):
+    """One rank of `gamg`, under torchrun: the distributed gamg on the
+    side^2 Q1 DistAIJ in f64, each setup timed (synchronized, between
+    barriers) in the order global, stream, stream, global, then CG to
+    rtol 1e-8 (unpreconditioned norm) once to warm and once timed; then
+    rank 0's host profile of one more streaming setup (cProfile, the
+    functions with the most cumulative time). Rank 0 prints."""
+    import cProfile
+    import io
+    import pstats
+
+    import torch.distributed as dist
+
+    from saddle_point_petsc_tpu_torch.models import poisson
+    from saddle_point_petsc_tpu_torch.ops import sparse
+    from saddle_point_petsc_tpu_torch.parallel import dist_csr
+    from saddle_point_petsc_tpu_torch.parallel import mesh as pmesh
+    from saddle_point_petsc_tpu_torch.solvers import amg, krylov
+
+    dev, created = pmesh.init_from_env(torch.device("cuda"))
+    try:
+        world, rank = dist.get_world_size(), dist.get_rank()
+        mesh = dist_csr.make_mesh_1d(dev)
+        csr, f, _, _ = poisson.assemble_poisson_csr(side - 1, side - 1, dtype=torch.float64, device=dev)
+        A = dist_csr.dist_aij_from_scipy(sparse.csr_to_scipy(csr), mesh)
+        b = dist_csr.pad_vector(f, A.n_pad, mesh)
+        del csr
+
+        def timed(fn):
+            dist.barrier(device_ids=[dev.index])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            dist.barrier(device_ids=[dev.index])
+            return out, time.perf_counter() - t0
+
+        lines = []
+        for setup in ("global", "stream", "stream", "global"):
+            M, t_setup = timed(lambda: amg.dist_amg_pc(A, setup=setup))
+
+            def solve():
+                return krylov.cg(A, b, M=M, rtol=1e-8, maxiter=200, norm_type="unpreconditioned")
+
+            solve()
+            res, t_solve = timed(solve)
+            its = res.iterations
+            lines.append(f"{side}^2 f64 CG + gamg, setup={setup}, on {world} rank(s): {its} its, "
+                         f"{res.reason_name()}, PCSetUp {t_setup:.3f} s, KSPSolve {t_solve:.4f} s, "
+                         f"{t_solve / its * 1e3:.3f} ms/it, levels {[lvl.A.shape[0] for lvl in M.levels]}")
+            del M
+        prof = cProfile.Profile() if rank == 0 else None
+        if prof:
+            prof.enable()
+        amg.dist_amg_pc(A, setup="stream")
+        if rank == 0:
+            prof.disable()
+            text = io.StringIO()
+            pstats.Stats(prof, stream=text).sort_stats("cumulative").print_stats(r"(amg|dist_csr)\.py", 20)
+            card = _card()
+            for ln in lines:
+                print(f"{ln} ({card}, each rank its own card)")
+            print(f"rank 0's host profile of one streaming setup on {world} rank(s):")
+            print(text.getvalue())
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def gamg_runs(ranks):
+    card = _card()
+    pkg = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = {"PYTHONPATH": pkg + os.pathsep + os.environ.get("PYTHONPATH", ""), "OMP_NUM_THREADS": "1"}
+    its = re.compile(r"its=(\d+), reason=(\w+)")
+    with tempfile.TemporaryDirectory() as tmp:
+        got = {device: its.findall(_torchrun(ranks, ["-device", device] + GAMG_SMALL, tmp, env))
+               for device in ("cuda", "cpu")}
+        print(f"65^2 f64 -mat_type aij -dist CG + gamg (stream) on {ranks} ranks: NCCL {got['cuda']}, gloo "
+              f"{got['cpu']} ({card})")
+        # the ranks' sums reduce in another order on NCCL than on gloo: counts within 1
+        if abs(int(got["cuda"][0][0]) - int(got["cpu"][0][0])) > 1:
+            raise SystemExit("NCCL and gloo disagree")
+        for n in (ranks, 1):
+            _torchrun(n, ["gamg-rank"], tmp, env, module="saddle_point_petsc_tpu_torch.tools.dist_probe")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("mode", choices=("overhead", "cli", "mesh", "aij", "aij-rank"))
+    ap.add_argument("mode", choices=("overhead", "cli", "mesh", "aij", "aij-rank", "gamg", "gamg-rank"))
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args(argv)
@@ -289,6 +390,10 @@ def main(argv=None):
         aij_runs(args.ranks)
     elif args.mode == "aij-rank":
         aij_rank()
+    elif args.mode == "gamg":
+        gamg_runs(args.ranks)
+    elif args.mode == "gamg-rank":
+        gamg_rank()
     else:
         mesh_runs(args.ranks)
 

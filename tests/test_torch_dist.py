@@ -164,12 +164,16 @@ def _worker(inp_path, out_path):
         ("ilu", []), ("bjacobi", []), ("bjacobi", ["-sub_pc_type", "chebyshev"]))]
     assert isinstance(make_pc("bjacobi", A, Options()), DistILU0PC)
     refused = []
-    for t in ("sor", "fieldsplit", "mg", "gamg"):
+    for t in ("sor", "fieldsplit", "mg"):
         try:
             make_pc(t, A, Options())
         except NotImplementedError as e:
             refused.append(re.search(r"A\.\d+", str(e)).group())
     out["refused"] = refused
+    try:
+        make_pc("gamg", A, Options())
+    except TypeError as e:
+        out["gamg_refused"] = ("TypeError", str(e))
 
     out["jax_loaded"] = sorted(k for k in sys.modules if k == "jax" or k.startswith("saddle_point_petsc_tpu."))
     if m.rank == 0:
@@ -301,6 +305,10 @@ def jref(inputs):
     keep("minres_jacobi", jk.minres(K, rhs, M=jpc.schur_pc(At, K.Bf, fact_type="diag"), rtol=1e-8,
                                     maxiter=1000))
     keep("gmres_ilu", jk.gmres(A, f, M=jdist_ilu0(A, sweeps=6), rtol=1e-8, maxiter=500))
+    try:
+        jmake_pc("gamg", A, JOptions())
+    except TypeError as e:
+        out["gamg_refused"] = ("TypeError", str(e))
     return out
 
 
@@ -401,8 +409,15 @@ def test_dist_gmres_ilu_matches_jax(world, jref):
 
 def test_make_pc_distributed_types(world):
     assert world["make_pc"] == ["DistILU0PC", "DistILU0PC", "ChebyshevPC"]
-    assert world["refused"] == ["A.28", "A.28", "A.29", "A.21"]
+    assert world["refused"] == ["A.28", "A.28", "A.29"]
     assert world["jax_loaded"] == []
+
+
+def test_gamg_on_dist_stencil_raises_the_jax_error(world, jref):
+    """-pc_type gamg on a DistStencilOperator raises what the JAX package
+    raises: gamg's setup reads no distributed stencil (`_to_scipy`)."""
+    assert world["gamg_refused"] == jref["gamg_refused"] == (
+        "TypeError", "gamg: unsupported operator DistStencilOperator")
 
 
 @pytest.fixture
