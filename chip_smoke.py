@@ -163,6 +163,23 @@ Phases (each passes or raises; the script exits non-zero on any failure):
     six B3 or B5 launches a level and two B5, its device time, and its
     result against the same hierarchy built on a CPU mesh; (d)
     graft_entry.dryrun_multichip() and entry() on the card.
+23. The distributed SOR, fieldsplit and geometric MG (precond.sor and
+    dist_fieldsplit on a DistStencilOperator, multigrid.mg_pc_dist) in a
+    world of one on NCCL (its own FileStore and group, destroyed at the
+    end), each -dist CLI run beside the serial one, run dist, serial,
+    serial, dist: (a) 1025^2 Poisson f64, CG + -pc_type mg to rtol 1e-8:
+    equal counts, |x_dist - x_serial| / |x_serial| at most 1e-12, the
+    levels, one V-cycle's B1 launches by entry, its time and its result
+    against the serial V-cycle; (b) 257^2 f64, CG + -pc_type sor and
+    GMRES + -pc_type fieldsplit -pc_fieldsplit_type multiplicative: equal
+    counts; (c) the 1025^2 f64 saddle, MINRES + Schur(diag) with
+    -fieldsplit_inner_pc_type mg -pc_mg_smoother chebyshev: equal counts;
+    (d) BASELINE config 5's solver at 2241^2 nodes (10,044,166 KKT rows)
+    in f64 through the CLI: iterations, reason, Assembly / PCSetUp /
+    KSPSolve seconds, ms an iteration, the levels (2241 -> ... -> 71 split,
+    the 36^2 coarsest gathered, 2592 dofs), B1 launches per iteration,
+    the f64 true residual and the peak device memory; then B1 against
+    its plain version at every level's grid of (d).
 
 Each kernel's timing runs in the order plain, kernel, library, library,
 kernel, plain (medians of 60 launches each) and prints the kernel's
@@ -1845,6 +1862,160 @@ def phase_gamg_dist(dev, tmp, card):
     return counts
 
 
+MG_DIST_GRID = 1025  # phase 23 (a), (c): the grid of phases 15-16
+CONFIG5_GRID = 2241  # phase 23 (d): BASELINE config 5, 10,044,166 KKT rows (bench.py:1240-1268)
+# BASELINE config 5's solver: MINRES + Schur(diag) with the MG A-block (bench.py:514-527)
+CONFIG5_PC = ["-ksp_type", "minres", "-pc_type", "fieldsplit", "-fieldsplit_inner_pc_type", "mg",
+              "-pc_mg_smoother", "chebyshev", "-ksp_rtol", "1e-8"]
+
+
+def _mg_levels(M):
+    """The node grids of a DistMGPC: split over the ranks, then replicated,
+    then the dense coarsest."""
+    split = [lvl.A.grid_shape[0] for lvl in M.levels]
+    tail = [lvl.A.grid_shape[0] for lvl in M.tail.levels]
+    n_c = M.tail.coarse_inv.shape[0]
+    return (f"levels {split} split over the ranks, {tail} replicated, coarsest {M.tiling.shape[0]}^2 nodes "
+            f"gathered ({n_c} dofs, dense)")
+
+
+def _dist_vs_serial(label, argv):
+    """The CLI's -dist route beside the serial one, run dist, serial,
+    serial, dist; the counts must be equal, and each route's two runs
+    equal. Returns ({route: (CliRun, counts, best ms per iteration)},
+    |x_dist - x_serial| / |x_serial|)."""
+    out = {}
+    for route in ("dist", "serial", "serial", "dist"):
+        run, counts = _cli(argv + (["-dist"] if route == "dist" else []))
+        t_setup, t_solve, ms = _phases(run)
+        its = run.result.iterations
+        print(f"  {label}, {route}: {its} its, {run.result.reason_name()}, PCSetUp {t_setup:.3f} s, KSPSolve "
+              f"{t_solve:.4f} s, {ms:.4f} ms/it, B1 {counts['B1'] / its:.2f} per iteration")
+        if route == "dist" and not isinstance(run.problem, cli.DistProblem):
+            raise AssertionError(f"{label}: the -dist run did not take the distributed route")
+        if route in out:
+            if its != out[route][0].result.iterations:
+                raise AssertionError(f"{label} {route}: {its} its, the first run took {out[route][0].result.iterations}")
+            ms = min(ms, out[route][2])
+        out[route] = (run, counts, ms)
+    its = {route: v[0].result.iterations for route, v in out.items()}
+    xd, xs = out["dist"][0].result.x, out["serial"][0].result.x
+    dx = (krylov.tnorm(krylov.tsub(xd, xs)) / krylov.tnorm(xs)).item()
+    print(f"  {label}: dist {its['dist']} its, serial {its['serial']} its, |x_dist - x_serial|/|x_serial| = "
+          f"{dx:.3e}, ms/it (the faster of two runs) {out['dist'][2]:.4f} / {out['serial'][2]:.4f}")
+    if its["dist"] != its["serial"]:
+        raise AssertionError(f"{label}: the distributed and serial counts differ: {its}")
+    return out, dx
+
+
+def _vcycle_ms(M, r, reps=20):
+    """Host milliseconds of one apply, over reps in a row (synchronized)."""
+    M(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        M(r)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _dist_mg_poisson(dev, card):
+    """Phase 23 (a): CG + MG at 1025^2 f64, -dist against serial, and one
+    V-cycle of each."""
+    n = MG_DIST_GRID
+    argv = ["-device", "cuda", "-da_grid_x", str(n), "-da_grid_y", str(n), "-dtype", "f64", "-ksp_type", "cg",
+            "-pc_type", "mg", "-ksp_rtol", "1e-8", "-ksp_converged_reason", "-log_view", "-no_vtk"]
+    out, dx = _dist_vs_serial(f"{n}^2 f64 CG + MG (sor)", argv)
+    if not dx <= 1e-12:
+        raise AssertionError(f"{n}^2 CG + MG: |x_dist - x_serial|/|x_serial| = {dx}")
+    Md, Ms = out["dist"][0].ksp.M, out["serial"][0].ksp.M
+    print(f"  {n}^2 f64 mg_pc_dist: {_mg_levels(Md)}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    r = torch.randn((2, n, n), generator=gen, dtype=torch.float64, device=dev)
+    _reset_counts()
+    zd = Md(r)
+    torch.cuda.synchronize()
+    launches, entries = spmv.launches, dict(spmv.entry_launches)
+    _compare("distributed V-cycle against the serial V-cycle", zd, Ms(r), torch.float64)
+    ms_d, ms_s = _vcycle_ms(Md, r), _vcycle_ms(Ms, r)
+    print(f"  {n}^2 f64 V-cycle (sor): {launches} B1 launches (local entry {entries['stencil_spmv']}, padded entry "
+          f"{entries['stencil_spmv_padded']}), {ms_d:.3f} ms distributed, {ms_s:.3f} ms serial (host clock, 20 in a "
+          f"row) ({card})")
+    if launches < 2 * len(Md.levels):
+        raise AssertionError(f"{launches} B1 launches in a V-cycle of {len(Md.levels)} distributed levels")
+
+
+def _config5(dev, card):
+    """Phase 23 (d): BASELINE config 5's solver at 2241^2 through the CLI.
+    Returns its B1 launches."""
+    n = CONFIG5_GRID
+    argv = ["-device", "cuda", "-problem_type", "saddle", "-dist", "-da_grid_x", str(n), "-da_grid_y", str(n),
+            "-dtype", "f64", "-body_force", "trig"] + CONFIG5_PC + ["-ksp_converged_reason", "-log_view", "-no_vtk"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    run, counts = _cli(argv)
+    peak = torch.cuda.max_memory_allocated(dev)
+    res, prob, M = run.result, run.problem, run.ksp.M.inner_solve
+    its = res.iterations
+    t_asm, t_setup, t_solve = (run.log.phases[p].total_s for p in ("Assembly", "PCSetUp", "KSPSolve"))
+    rows = prob.A.n + prob.Bf.shape[0]
+    true_rel = _true_rel_kkt(prob.A.planes, prob.Bf, prob.rhs, res.x)
+    print(f"  config 5, {n}^2 f64 ({rows} KKT rows), MINRES + Schur(diag, MG chebyshev), -dist world of one: {its} its, "
+          f"{res.reason_name()} (reason {res.converged_reason}), Assembly {t_asm:.3f} s, PCSetUp {t_setup:.3f} s, "
+          f"KSPSolve {t_solve:.4f} s, {t_solve / its * 1e3:.4f} ms/it, B1 {counts['B1']} launches "
+          f"({counts['B1'] / its:.2f} per iteration), true residual {true_rel:.3e} (f64), peak device memory "
+          f"{peak / 2**30:.2f} GiB ({card})")
+    print(f"  config 5 {_mg_levels(M)}")
+    if type(M).__name__ != "DistMGPC" or rows != 10_044_166:
+        raise AssertionError(f"config 5: A-block {type(M).__name__}, {rows} rows")
+    if res.converged_reason <= 0 or not np.isfinite(true_rel):
+        raise AssertionError(f"config 5: {res.reason_name()}, true residual {true_rel}")
+    # B1 at every split level's grid, against its plain version
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    for lvl in M.levels:
+        planes = lvl.A.planes
+        x = torch.randn((2, *planes.shape[-2:]), generator=gen, dtype=planes.dtype, device=dev)
+        _compare(f"B1  config 5 level grid {planes.shape[-1]}^2 f64", spmv.stencil_spmv(planes, x),
+                 spmv.planes_matvec_field(planes, x), torch.float64)
+    return counts["B1"]
+
+
+def phase_mg_dist(dev, tmp, card):
+    """Phase 23: the distributed SOR, fieldsplit and MG in a world of one on
+    NCCL. Returns config 5's B1 launches."""
+    tdist.init_process_group("nccl", store=tdist.FileStore(os.path.join(tmp, "nccl_store_mg"), 1), rank=0,
+                             world_size=1, device_id=dev, timeout=datetime.timedelta(seconds=300))
+    try:
+        if tdist.get_backend() != "nccl":
+            raise AssertionError(f"backend {tdist.get_backend()}, not nccl")
+        t0 = time.perf_counter()
+        _dist_mg_poisson(dev, card)
+        print(f"phase 23 (a): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        g257 = ["-device", "cuda", "-da_grid_x", "257", "-da_grid_y", "257", "-dtype", "f64", "-ksp_rtol", "1e-8",
+                "-ksp_max_it", "20000", "-ksp_converged_reason", "-log_view", "-no_vtk"]
+        _dist_vs_serial("257^2 f64 CG + sor", g257 + ["-ksp_type", "cg", "-pc_type", "sor"])
+        _dist_vs_serial("257^2 f64 GMRES + fieldsplit (multiplicative)",
+                        g257 + ["-ksp_type", "gmres", "-pc_type", "fieldsplit", "-pc_fieldsplit_type", "multiplicative"])
+        print(f"phase 23 (b): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        n = MG_DIST_GRID
+        kkt = ["-device", "cuda", "-problem_type", "saddle", "-da_grid_x", str(n), "-da_grid_y", str(n), "-dtype",
+               "f64", "-body_force", "trig", "-ksp_converged_reason", "-log_view", "-no_vtk"] + CONFIG5_PC
+        _dist_vs_serial(f"{n}^2 f64 saddle MINRES + Schur(diag, MG chebyshev)", kkt)
+        print(f"phase 23 (c): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        b1 = _config5(dev, card)
+        print(f"phase 23 (d): {time.perf_counter() - t0:.1f} s")
+    finally:
+        tdist.destroy_process_group()
+    if tdist.is_initialized():
+        raise AssertionError("the process group outlived phase 23")
+    return b1
+
+
 def main():
     t_start = time.perf_counter()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1894,6 +2065,10 @@ def main():
         t0 = time.perf_counter()
         dist_gamg_counts = phase_gamg_dist(dev, tmp, card)
         print(f"phase 22: {time.perf_counter() - t0:.1f} s ({card})")
+        t0 = time.perf_counter()
+        # phase 4's saddle route and phase 23's config 5
+        launches += phase_mg_dist(dev, tmp, card)
+        print(f"phase 23: {time.perf_counter() - t0:.1f} s ({card})")
 
     def row(name, source, replaces, launches, err, numbers):
         return {

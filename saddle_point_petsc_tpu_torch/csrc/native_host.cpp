@@ -3,6 +3,9 @@
 //   - sptpu_ilu0: ILU(0) factorization on CSR (-pc_type ilu's PCSetUp)
 //   - sptpu_rcm: reverse Cuthill-McKee ordering (csr_to_dia's RCM option)
 //   - sptpu_aggregate: greedy standard aggregation (gamg's PCSetUp)
+//   - sptpu_coo_to_csr: COO triplets -> CSR with duplicates summed
+//   - sptpu_lower_solve_unit, sptpu_upper_solve: exact sequential CSR
+//     triangular solves (a host check of the ILU(0) factors)
 //
 // Copies of the functions of the same names in the JAX package's
 // saddle_point_petsc_tpu/csrc/sptpu_native.cpp, so that the port builds
@@ -17,6 +20,7 @@
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <numeric>
 #include <vector>
 
 extern "C" {
@@ -65,6 +69,99 @@ int64_t sptpu_ilu0(int64_t n, const int32_t* indptr, const int32_t* indices,
     for (int32_t p = row_beg; p < row_end; ++p) pos[indices[p]] = -1;
   }
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// COO -> CSR with duplicate summation.  rows/cols/vals: nnz triplets
+// (rows < 0 = padding, dropped).  Outputs: indptr (m+1), out_cols/out_vals
+// (capacity nnz; first *out_nnz entries valid).  Returns 0.
+// ---------------------------------------------------------------------------
+int64_t sptpu_coo_to_csr(int64_t m, int64_t nnz, const int32_t* rows,
+                         const int32_t* cols, const double* vals,
+                         int32_t* indptr, int32_t* out_cols, double* out_vals,
+                         int64_t* out_nnz) {
+  std::vector<int64_t> order(nnz);
+  std::iota(order.begin(), order.end(), 0);
+  std::sort(order.begin(), order.end(), [&](int64_t a, int64_t b) {
+    const int32_t ra = rows[a] < 0 ? INT32_MAX : rows[a];
+    const int32_t rb = rows[b] < 0 ? INT32_MAX : rows[b];
+    if (ra != rb) return ra < rb;
+    return cols[a] < cols[b];
+  });
+  int64_t w = -1;
+  int32_t prev_r = -2, prev_c = -2;
+  for (int64_t q = 0; q < nnz; ++q) {
+    const int64_t e = order[q];
+    const int32_t r = rows[e];
+    if (r < 0 || r >= m) continue;
+    const int32_t c = cols[e];
+    if (r == prev_r && c == prev_c) {
+      out_vals[w] += vals[e];
+    } else {
+      ++w;
+      out_cols[w] = c;
+      out_vals[w] = vals[e];
+      prev_r = r;
+      prev_c = c;
+    }
+    // record row starts lazily below
+  }
+  const int64_t total = w + 1;
+  *out_nnz = total;
+  // rebuild indptr with a counting pass over deduped entries
+  std::fill(indptr, indptr + m + 1, 0);
+  {
+    int64_t w2 = -1;
+    prev_r = -2;
+    prev_c = -2;
+    for (int64_t q = 0; q < nnz; ++q) {
+      const int64_t e = order[q];
+      const int32_t r = rows[e];
+      if (r < 0 || r >= m) continue;
+      const int32_t c = cols[e];
+      if (!(r == prev_r && c == prev_c)) {
+        ++w2;
+        indptr[r + 1] += 1;
+        prev_r = r;
+        prev_c = c;
+      }
+    }
+  }
+  for (int64_t i = 0; i < m; ++i) indptr[i + 1] += indptr[i];
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// CSR triangular solves (exact, sequential) — host-side validation path and
+// small-system coarse solves.  L: strict lower w/ unit diag; U incl diag.
+// ---------------------------------------------------------------------------
+void sptpu_lower_solve_unit(int64_t n, const int32_t* indptr,
+                            const int32_t* indices, const double* data,
+                            const double* b, double* x) {
+  for (int64_t i = 0; i < n; ++i) {
+    double s = b[i];
+    // s -= a_ij x_j as one fused multiply-add, as in sptpu_ilu0
+    for (int32_t p = indptr[i]; p < indptr[i + 1]; ++p)
+      s = std::fma(-data[p], x[indices[p]], s);
+    x[i] = s;
+  }
+}
+
+void sptpu_upper_solve(int64_t n, const int32_t* indptr,
+                       const int32_t* indices, const double* data,
+                       const double* b, double* x) {
+  for (int64_t i = n - 1; i >= 0; --i) {
+    double s = b[i];
+    double d = 1.0;
+    for (int32_t p = indptr[i]; p < indptr[i + 1]; ++p) {
+      const int32_t j = indices[p];
+      if (j == i)
+        d = data[p];
+      else if (j > i)
+        s = std::fma(-data[p], x[j], s);
+    }
+    x[i] = s / d;
+  }
 }
 
 // Reverse Cuthill-McKee ordering (bandwidth reduction). indptr/indices:

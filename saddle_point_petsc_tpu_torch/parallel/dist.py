@@ -144,13 +144,23 @@ def _local_matvec(planes, x, mesh):
 @dataclasses.dataclass(frozen=True)
 class DistStencilOperator:
     """Stencil operator whose planes and vectors are this rank's patches of
-    the global ones; its matvec exchanges halos with the neighbours."""
+    the global ones; its matvec exchanges halos with the neighbours.
+
+    The patches tile the grid equally (the padded grid of `DistGrid`), or,
+    given `tiling`, unequally: a multigrid level (solvers/multigrid.py),
+    whose ranks in a mesh row share their rows and in a mesh column their
+    columns, so that every face a rank sends is shaped like the one its
+    neighbour sends back."""
 
     planes: torch.Tensor  # this rank's (4, 3, 3, my, mx)
     mesh: ProcessMesh
     # true (unpadded) node counts when the grid was padded to divide the
     # mesh; None = the whole grid is active
     active_shape: Any = None
+    # ((j0, i0), (ny, nx)): this patch's global origin and the global grid
+    # of an unequal tiling; None = equal patches, rank (pj, pi) at
+    # (pj * my, pi * mx)
+    tiling: Any = None
     # its vectors are this rank's patches (solvers/krylov.py)
     dist_leaves = ("patch",)
 
@@ -160,9 +170,30 @@ class DistStencilOperator:
 
     @property
     def grid_shape(self):
-        """The padded global (ny, nx)."""
+        """The global (ny, nx): padded, for equal patches."""
+        if self.tiling is not None:
+            return tuple(self.tiling[1])
         my, mx = self.local_shape
         return (my * self.mesh.py, mx * self.mesh.px)
+
+    @property
+    def origin(self):
+        """The global (row, column) of this patch's first node."""
+        if self.tiling is not None:
+            return tuple(self.tiling[0])
+        my, mx = self.local_shape
+        return (self.mesh.pj * my, self.mesh.pi * mx)
+
+    def local_patch(self, g):
+        """This rank's (..., my, mx) view of a global array g (grid dims
+        last, shaped `grid_shape`)."""
+        (j0, i0), (my, mx) = self.origin, self.local_shape
+        return g[..., j0 : j0 + my, i0 : i0 + mx]
+
+    def global_like(self, t):
+        """An empty CPU tensor of t's dtype shaped like the global array
+        whose patch t is."""
+        return torch.empty((*t.shape[:-2], *self.grid_shape), dtype=t.dtype)
 
     @property
     def n(self):
@@ -335,6 +366,25 @@ def patch_truncate(A: DistStencilOperator) -> DistStencilOperator:
     p[:, :, 0, :, 0] = 0.0
     p[:, :, 2, :, -1] = 0.0
     return dataclasses.replace(A, planes=p)
+
+
+@dataclasses.dataclass(frozen=True)
+class DistScalarStencilOp(precond.ScalarStencilOp):
+    """A scalar 9-point stencil on this rank's patch: its ghost ring comes
+    from one single-phase halo exchange of the (1, my, mx) field."""
+
+    mesh: Any = None
+
+    def pad(self, x):
+        return halo_exchange_1phase(x[None].contiguous(), self.mesh)[0]
+
+
+def dist_fieldsplit(A: DistStencilOperator, fs_type="additive") -> precond.FieldSplitPC:
+    """Fieldsplit over the velocity components on the rank's patches: the
+    Jacobi sub-PCs are pointwise and exchange nothing; the multiplicative
+    form's coupling A10 z0 exchanges z0's ghost ring once."""
+    pc = precond.fieldsplit(A, fs_type=fs_type)
+    return dataclasses.replace(pc, A10=DistScalarStencilOp(pc.A10.Ws, A.mesh))
 
 
 def dist_block_jacobi(A: DistStencilOperator, iters=8):

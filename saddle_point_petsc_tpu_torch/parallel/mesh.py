@@ -241,3 +241,21 @@ def gather_rows(x, mesh: ProcessMesh):
     parts = [torch.empty_like(x) for _ in range(mesh.size)]
     dist.all_gather(parts, x, group=mesh.group)
     return torch.cat(parts)
+
+
+def all_gather_tiles(x, mesh: ProcessMesh, rows, cols):
+    """The global array, on every rank, from the patches x of an unequal
+    tiling (grid dims last): rank (pj, pi) holds the global rows
+    rows[pj] = (lo, hi) and columns cols[pi], the ranges in order. One
+    all_gather of the patches zero-padded to the largest; a world of one
+    returns x."""
+    if mesh.size == 1:
+        return x
+    hs = [hi - lo for lo, hi in rows]
+    ws = [hi - lo for lo, hi in cols]
+    buf = x.new_zeros((*x.shape[:-2], max(hs), max(ws)))
+    buf[..., : x.shape[-2], : x.shape[-1]] = x  # in place: buf is the fresh buffer made above
+    parts = [torch.empty_like(buf) for _ in range(mesh.size)]
+    dist.all_gather(parts, buf, group=mesh.group)
+    return torch.cat([torch.cat([parts[j * mesh.px + i][..., : hs[j], : ws[i]] for i in range(mesh.px)], dim=-1)
+                      for j in range(mesh.py)], dim=-2)

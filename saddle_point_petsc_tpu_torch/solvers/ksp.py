@@ -39,10 +39,12 @@ Supported options (prefix-scoped):
 On a DistStencilOperator: none, jacobi, pbjacobi, chebyshev
 (-pc_chebyshev_esteig), bjacobi (one block per rank: -sub_pc_type ilu
 [default] -> per-patch ILU(0) with -pc_ilu_sweeps, any other -> Chebyshev
-local solves with -pc_bjacobi_local_its [8]) and ilu (= bjacobi + ILU(0));
-the Schur fieldsplit on a DistSaddleOperator. sor, fieldsplit and mg there
-raise NotImplementedError naming their ROADMAP item; gamg raises the JAX
-package's TypeError (its setup reads no distributed stencil).
+local solves with -pc_bjacobi_local_its [8]), ilu (= bjacobi + ILU(0)),
+sor (the global red-black SOR, one halo exchange a half-step), fieldsplit
+(additive or multiplicative, `dist_fieldsplit`) and mg (the distributed
+hierarchy, `mg_pc_dist`, with the -pc_mg_* options); the Schur fieldsplit
+on a DistSaddleOperator, whose A-block takes any of these. gamg raises
+the JAX package's TypeError (its setup reads no distributed stencil).
 
 On a DistAIJ (MATMPIAIJ, parallel/dist_csr.py): none, jacobi, chebyshev
 (no -pc_chebyshev_esteig: the JAX package's estimate needs a grid),
@@ -67,23 +69,14 @@ import torch
 
 from saddle_point_petsc_tpu_torch.ops import sparse as sp
 from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator
-from saddle_point_petsc_tpu_torch.parallel.dist import DistStencilOperator, dist_block_jacobi
+from saddle_point_petsc_tpu_torch.parallel.dist import DistStencilOperator, dist_block_jacobi, dist_fieldsplit
 from saddle_point_petsc_tpu_torch.parallel.dist_csr import DistAIJ, dist_aij_block_jacobi, dist_aij_ilu0
 from saddle_point_petsc_tpu_torch.solvers import krylov, precond
 from saddle_point_petsc_tpu_torch.solvers.amg import amg_pc, dist_amg_pc
 from saddle_point_petsc_tpu_torch.solvers.ilu_stencil import dist_ilu0, stencil_ilu0
-from saddle_point_petsc_tpu_torch.solvers.multigrid import mg_pc
+from saddle_point_petsc_tpu_torch.solvers.multigrid import mg_pc, mg_pc_dist
 from saddle_point_petsc_tpu_torch.solvers.operators import SaddleOperator
 from saddle_point_petsc_tpu_torch.utils.options import Options
-
-
-# PC types whose distributed-stencil form rests on XLA partitioning global
-# shifted slices in the JAX package, which needs a design of its own here
-_DIST_LATER = {
-    "sor": "A.28",
-    "fieldsplit": "A.28",
-    "mg": "A.29",
-}
 
 
 def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
@@ -95,11 +88,6 @@ def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
     opts = opts if opts is not None else Options()
     if pc_type in ("none", ""):
         return precond.IdentityPC()
-    if isinstance(A, DistStencilOperator) and pc_type in _DIST_LATER:
-        raise NotImplementedError(
-            f"-pc_type {pc_type} on a distributed stencil operator is ROADMAP.md "
-            f"{_DIST_LATER[pc_type]}"
-        )
 
     if isinstance(A, SaddleOperator):
         if pc_type != "fieldsplit":
@@ -132,7 +120,9 @@ def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
     if pc_type == "pbjacobi":
         return precond.pbjacobi(A)
     if pc_type == "sor":
-        if not isinstance(A, StencilOperator):
+        # on a DistStencilOperator: the global red-black SOR, each rank
+        # colouring its patch by the parity of its global origin
+        if not isinstance(A, (StencilOperator, DistStencilOperator)):
             raise ValueError("sor PC requires a stencil operator")
         return precond.sor(
             A, omega=opts.get_float("pc_sor_omega", 1.0), sweeps=opts.get_int("pc_sor_its", 1)
@@ -180,10 +170,15 @@ def make_pc(pc_type: str, A, opts: Optional[Options] = None, ksp_type=None):
             lmin, lmax = 0.1 * 1.1 * est, 1.1 * est
         return precond.chebyshev_pc(A, lmin=lmin, lmax=lmax, iters=opts.get_int("pc_chebyshev_its", 3))
     if pc_type == "fieldsplit":
+        fs_type = opts.get_str("pc_fieldsplit_type", "additive")
+        if isinstance(A, DistStencilOperator):
+            return dist_fieldsplit(A, fs_type=fs_type)
         if not isinstance(A, StencilOperator):
             raise ValueError("fieldsplit PC requires a stencil operator")
-        return precond.fieldsplit(A, fs_type=opts.get_str("pc_fieldsplit_type", "additive"))
+        return precond.fieldsplit(A, fs_type=fs_type)
     if pc_type == "mg":
+        if isinstance(A, DistStencilOperator):
+            return mg_pc_dist(A, opts)
         if not isinstance(A, StencilOperator):
             raise ValueError("mg PC requires a stencil operator")
         return mg_pc(A, opts)

@@ -18,8 +18,22 @@ Every level's stencil matvec, in the residuals and in the smoothers, goes
 through `StencilOperator`: kernel B1 on a CUDA device. The V-cycle is
 linear and symmetric (for the symmetric smoothers), so it is a valid
 CG/MINRES preconditioner. Grids coarsen only while the node counts are
-odd: 2^k + 1 nodes per side coarsen all the way. The distributed
-hierarchy (`DistMGPC`, `mg_pc_dist`) is a later slice.
+odd: 2^k + 1 nodes per side coarsen all the way.
+
+The distributed hierarchy (`DistMGPC`, `mg_pc_dist`) is the serial one on
+the active (unpadded) region of a `DistStencilOperator`, its levels split
+over the ranks: a coarse node J lives on the rank that owns fine node 2J,
+so every rank of a mesh row holds the same coarse rows and every rank of
+a mesh column the same coarse columns (an unequal tiling whose faces
+still match across each exchange). Restriction, prolongation and the
+Galerkin product each read a one-node ring of their input from the
+neighbours (one single-phase halo exchange); the smoothers run on the
+level's distributed operator. Once some rank would hold fewer than two
+nodes on an axis, or the level is the coarsest, the level is gathered to
+every rank and the V-cycle finishes there on the serial hierarchy of the
+gathered grid, every rank holding the same dense inverse. Padding nodes
+are identity rows: z = r there. A world of one runs the same code,
+exchanging with no peer, and gives the serial `mg_pc`'s bits.
 """
 from __future__ import annotations
 
@@ -35,37 +49,66 @@ from saddle_point_petsc_tpu_torch.ops.stencil import (
     field_to_flat,
     flat_to_field,
 )
+from saddle_point_petsc_tpu_torch.parallel.dist import DistStencilOperator
+from saddle_point_petsc_tpu_torch.parallel.halo import halo_exchange_1phase
+from saddle_point_petsc_tpu_torch.parallel.mesh import all_gather_tiles
 from saddle_point_petsc_tpu_torch.solvers import precond
 
 
-def prolong(xc, ny, nx):
-    """Bilinear interpolation on the last two (spatial) dims:
-    (..., nyc, nxc) -> (..., ny, nx) with ny = 2*nyc-1, nx = 2*nxc-1
-    (nested node grids). Works on dof-major (2, nyc, nxc) fields."""
-    xf = xc.new_zeros(xc.shape[:-2] + (ny, nx))
+def _pad1(x):
+    return F.pad(x, (1, 1, 1, 1))
+
+
+def _prolong_window(xcp, ey, ex, ny, nx):
+    """Bilinear interpolation onto an (ny, nx) window of the fine grid from
+    the coarse nodes around it: xcp holds the window's coarse nodes with a
+    one-node ring, (ey, ex) is the parity of the window's first fine node
+    (even fine node 2J sits on coarse node J)."""
+
+    def parents(e, n):
+        # padded-coarse slices: the even nodes' own coarse node, and the
+        # two coarse neighbours of the odd ones
+        ne, no = (n - e + 1) // 2, (n - (1 - e) + 1) // 2
+        return slice(1, 1 + ne), slice(1 - e, 1 - e + no), slice(2 - e, 2 - e + no)
+
+    (Ey, Ay, By), (Ex, Ax, Bx) = parents(ey, ny), parents(ex, nx)
+    oy, ox = 1 - ey, 1 - ex
+    xf = xcp.new_zeros(xcp.shape[:-2] + (ny, nx))
     # in place: xf is a fresh tensor owned by this function
-    xf[..., 0::2, 0::2] = xc
-    xf[..., 0::2, 1::2] = 0.5 * (xc[..., :, :-1] + xc[..., :, 1:])
-    xf[..., 1::2, 0::2] = 0.5 * (xc[..., :-1, :] + xc[..., 1:, :])
-    xf[..., 1::2, 1::2] = 0.25 * (
-        xc[..., :-1, :-1] + xc[..., :-1, 1:] + xc[..., 1:, :-1] + xc[..., 1:, 1:]
+    xf[..., ey::2, ex::2] = xcp[..., Ey, Ex]
+    xf[..., ey::2, ox::2] = 0.5 * (xcp[..., Ey, Ax] + xcp[..., Ey, Bx])
+    xf[..., oy::2, ex::2] = 0.5 * (xcp[..., Ay, Ex] + xcp[..., By, Ex])
+    xf[..., oy::2, ox::2] = 0.25 * (
+        xcp[..., Ay, Ax] + xcp[..., Ay, Bx] + xcp[..., By, Ax] + xcp[..., By, Bx]
     )
     return xf
 
 
-def restrict(rf, nyc, nxc):
-    """Exact adjoint of `prolong`: (..., ny, nx) -> (..., nyc, nxc)."""
-    ny, nx = rf.shape[-2:]
-    fp = F.pad(rf, (1, 1, 1, 1))
+def _restrict_window(fp, ey, ex, nyc, nxc):
+    """P^T on an (nyc, nxc) window of the coarse grid from the fine nodes
+    around it: fp holds the window's fine nodes with a one-node ring, its
+    first coarse node's fine node 2J at row ey, column ex of the window."""
 
     def f(dj, di):
-        return fp[..., 1 + dj : 1 + dj + ny : 2, 1 + di : 1 + di + nx : 2]
+        return fp[..., 1 + ey + dj : ey + dj + 2 * nyc : 2, 1 + ex + di : ex + di + 2 * nxc : 2]
 
     return (
         f(0, 0)
         + 0.5 * (f(0, 1) + f(0, -1) + f(1, 0) + f(-1, 0))
         + 0.25 * (f(1, 1) + f(1, -1) + f(-1, 1) + f(-1, -1))
     )
+
+
+def prolong(xc, ny, nx):
+    """Bilinear interpolation on the last two (spatial) dims:
+    (..., nyc, nxc) -> (..., ny, nx) with ny = 2*nyc-1, nx = 2*nxc-1
+    (nested node grids). Works on dof-major (2, nyc, nxc) fields."""
+    return _prolong_window(_pad1(xc), 0, 0, ny, nx)
+
+
+def restrict(rf, nyc, nxc):
+    """Exact adjoint of `prolong`: (..., ny, nx) -> (..., nyc, nxc)."""
+    return _restrict_window(_pad1(rf), 0, 0, nyc, nxc)
 
 
 _W1D = {-1: 0.5, 0: 1.0, 1: 0.5}  # hat weights of the bilinear prolongation
@@ -87,11 +130,16 @@ def galerkin_coarse_stencil(op: StencilOperator) -> StencilOperator:
     zero (zero padding), matching the fine operator's zero Dirichlet
     exterior.
     """
-    planes = op.planes
     ny, nx = op.grid_shape
-    nyc, nxc = (ny + 1) // 2, (nx + 1) // 2
-    pp = F.pad(planes, (1, 1, 1, 1))  # (4, 3, 3, ny+2, nx+2)
-    out = planes.new_empty((4, 3, 3, nyc, nxc))
+    return StencilOperator(_galerkin_window(_pad1(op.planes), 0, 0, (ny + 1) // 2, (nx + 1) // 2))
+
+
+def _galerkin_window(pp, ey, ex, nyc, nxc):
+    """The Galerkin planes of an (nyc, nxc) window of the coarse grid from
+    the fine planes around it: pp holds the window's fine planes with a
+    one-node ring (4, 3, 3, ., .), the first coarse node's fine node 2J at
+    row ey, column ex of the window."""
+    out = pp.new_empty((4, 3, 3, nyc, nxc))
     for dJ in (-1, 0, 1):
         y_terms = [
             (a, c, _W1D[a] * _W1D[c]) for a in (-1, 0, 1) for c in (-1, 0, 1) if abs(2 * dJ + c - a) <= 1
@@ -100,16 +148,16 @@ def galerkin_coarse_stencil(op: StencilOperator) -> StencilOperator:
             x_terms = [
                 (b, d, _W1D[b] * _W1D[d]) for b in (-1, 0, 1) for d in (-1, 0, 1) if abs(2 * dI + d - b) <= 1
             ]
-            acc = planes.new_zeros((4, nyc, nxc))
+            acc = pp.new_zeros((4, nyc, nxc))
             for a, c, wy in y_terms:
                 sj = 2 * dJ + c - a
-                rows = slice(1 + a, 1 + a + 2 * nyc - 1, 2)
+                rows = slice(1 + ey + a, ey + a + 2 * nyc, 2)
                 for b, d, wx in x_terms:
                     si = 2 * dI + d - b
-                    cols = slice(1 + b, 1 + b + 2 * nxc - 1, 2)
+                    cols = slice(1 + ex + b, ex + b + 2 * nxc, 2)
                     acc = acc + (wy * wx) * pp[:, sj + 1, si + 1, rows, cols]
             out[:, dJ + 1, dI + 1] = acc  # in place: out is fresh, filled once per (dJ, dI)
-    return StencilOperator(out)
+    return out
 
 
 def galerkin_coarse_stencil_probe(op: StencilOperator) -> StencilOperator:
@@ -219,37 +267,33 @@ def _smoothers(op: StencilOperator, smoother):
         # the Jacobi-preconditioned operator (PETSc PCMG's default
         # smoother); D^-1 A reaches about 2, so lmax is estimated per level
         Mj = precond.jacobi(op)
-        tmpl = torch.ones((2, *op.grid_shape), dtype=op.planes.dtype, device=op.planes.device)
-        lmax = 1.1 * precond.estimate_lmax(op, Mj, template=tmpl)
+        # the start vector is drawn over the level's global grid
+        lmax = 1.1 * precond.estimate_lmax(op, Mj, template=torch.ones_like(op.diagonal()))
         return precond.chebyshev_pc(op, inner=Mj, lmin=lmax / 4.0, lmax=lmax, iters=3), None
     if smoother == "jacobi":
         return _DampedPBJacobi(precond.pbjacobi(op).inv_blocks, 0.8), None
     raise ValueError(f"mg smoother {smoother!r}: use one of {_SMOOTHERS}")
 
 
-def mg_pc(A: StencilOperator, opts=None, max_levels=10, coarse_size=5, smoother="sor", cycles=1) -> MGPC:
-    """Build the hierarchy on A's device: Galerkin coarsening while both
-    node counts are odd and above `coarse_size`, up to `max_levels`
-    levels (the coarsest included), then a dense inverse of the coarsest
-    operator on the host. Options: -pc_mg_levels, -pc_mg_smoother
-    {sor,sor-fb,chebyshev,jacobi}, -pc_mg_cycles."""
+def _mg_options(opts, max_levels, smoother, cycles):
     if opts is not None:
         max_levels = opts.get_int("pc_mg_levels", max_levels)
         smoother = opts.get_str("pc_mg_smoother", smoother)
         cycles = opts.get_int("pc_mg_cycles", cycles)
     if smoother not in _SMOOTHERS:
         raise ValueError(f"mg smoother {smoother!r}: use one of {_SMOOTHERS}")
-    levels = []
-    op = A
-    while len(levels) < max_levels - 1:
-        ny, nx = op.grid_shape
-        if ny <= coarse_size or nx <= coarse_size:
-            break
-        if (ny - 1) % 2 or (nx - 1) % 2:
-            break  # not coarsenable further (needs odd node counts)
-        levels.append(MGLevel(op, *_smoothers(op, smoother)))
-        op = galerkin_coarse_stencil(op)
-    cny, cnx = op.grid_shape
+    return max_levels, smoother, cycles
+
+
+def _coarsens(shape, n_levels, max_levels, coarse_size):
+    """Whether a level of `shape` nodes, below n_levels others, is
+    smoothed and coarsened: room for another level, both node counts
+    above coarse_size and odd."""
+    ny, nx = shape
+    return n_levels < max_levels - 1 and ny > coarse_size and nx > coarse_size and ny % 2 == 1 and nx % 2 == 1
+
+
+def _check_coarsest(cny, cnx):
     if cny * cnx * 2 > COARSE_DOF_CAP:
         raise ValueError(
             f"mg_pc: coarsest level is {cny}x{cnx} nodes "
@@ -258,6 +302,21 @@ def mg_pc(A: StencilOperator, opts=None, max_levels=10, coarse_size=5, smoother=
             "2^k elements per axis coarsen fully); choose such a grid or "
             "raise max_levels."
         )
+
+
+def mg_pc(A: StencilOperator, opts=None, max_levels=10, coarse_size=5, smoother="sor", cycles=1) -> MGPC:
+    """Build the hierarchy on A's device: Galerkin coarsening while both
+    node counts are odd and above `coarse_size`, up to `max_levels`
+    levels (the coarsest included), then a dense inverse of the coarsest
+    operator on the host. Options: -pc_mg_levels, -pc_mg_smoother
+    {sor,sor-fb,chebyshev,jacobi}, -pc_mg_cycles."""
+    max_levels, smoother, cycles = _mg_options(opts, max_levels, smoother, cycles)
+    levels = []
+    op = A
+    while _coarsens(op.grid_shape, len(levels), max_levels, coarse_size):
+        levels.append(MGLevel(op, *_smoothers(op, smoother)))
+        op = galerkin_coarse_stencil(op)
+    _check_coarsest(*op.grid_shape)
     dense = _stencil_to_dense_host(op.W.detach().cpu().numpy())
     coarse_inv = torch.tensor(np.linalg.inv(dense), device=op.planes.device)
     return MGPC(tuple(levels), coarse_inv, cycles)
@@ -280,3 +339,156 @@ def _stencil_to_dense_host(W):
                     c = ((j + dj - 1) * nx + (i + di - 1)) * 2
                     dense[r : r + 2, c : c + 2] += blk[j, i]
     return dense
+
+
+# ---------------------------------------------------------------------------
+# The distributed hierarchy
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _Tiling:
+    """How a level's node grid lies over the mesh: the global row range
+    (lo, hi) of each mesh row and the column range of each mesh column."""
+
+    rows: tuple
+    cols: tuple
+
+    @staticmethod
+    def of(ny, nx, my, mx, mesh):
+        """Equal patches of (my, mx) nodes, cut to the first (ny, nx)."""
+        return _Tiling(tuple((min(j * my, ny), min((j + 1) * my, ny)) for j in range(mesh.py)),
+                       tuple((min(i * mx, nx), min((i + 1) * mx, nx)) for i in range(mesh.px)))
+
+    @property
+    def shape(self):
+        return (self.rows[-1][1], self.cols[-1][1])
+
+    def patch(self, mesh):
+        """This rank's ((j0, j1), (i0, i1))."""
+        return self.rows[mesh.pj], self.cols[mesh.pi]
+
+    def coarse(self):
+        """The coarse level's tiling: coarse node J goes with fine node 2J."""
+
+        def halve(ranges):
+            return tuple((-(-lo // 2), -(-hi // 2)) for lo, hi in ranges)
+
+        return _Tiling(halve(self.rows), halve(self.cols))
+
+    def min_extent(self):
+        return min(hi - lo for lo, hi in self.rows + self.cols)
+
+
+def _level_operator(planes, tiling, mesh):
+    ((j0, _), (i0, _)) = tiling.patch(mesh)
+    return DistStencilOperator(planes, mesh, tiling=((j0, i0), tiling.shape))
+
+
+def _dist_restrict(res, A: DistStencilOperator):
+    """P^T on a level's patches: this rank's coarse patch from its fine
+    patch and the fine ring around it (one exchange)."""
+    (j0, i0), (mj, mi) = A.origin, A.local_shape
+    ey, ex = j0 % 2, i0 % 2
+    return _restrict_window(halo_exchange_1phase(res, A.mesh), ey, ex, (mj - ey + 1) // 2, (mi - ex + 1) // 2)
+
+
+def _dist_prolong(zc, A: DistStencilOperator):
+    """P on a level's patches: this rank's fine patch of A's level from its
+    coarse patch and the coarse ring around it (one exchange)."""
+    (j0, i0), (mj, mi) = A.origin, A.local_shape
+    return _prolong_window(halo_exchange_1phase(zc, A.mesh), j0 % 2, i0 % 2, mj, mi)
+
+
+def _dist_galerkin(A: DistStencilOperator, coarse: _Tiling):
+    """The coarse level's operator on this rank's coarse patch: the Galerkin
+    planes from the fine planes and their ring (one exchange of the 36
+    planes)."""
+    (j0, i0), ((J0, J1), (I0, I1)) = A.origin, coarse.patch(A.mesh)
+    pp = halo_exchange_1phase(A.planes, A.mesh)
+    return _level_operator(_galerkin_window(pp, 2 * J0 - j0, 2 * I0 - i0, J1 - J0, I1 - I0), coarse, A.mesh)
+
+
+@dataclasses.dataclass(frozen=True)
+class DistMGPC:
+    """V-cycle geometric multigrid on a DistStencilOperator's patches.
+
+    `levels` are split over the ranks (their operators on unequal
+    tilings); `tail` is the serial hierarchy of the first level gathered
+    to every rank (`tiling` says how that level lies over the mesh), so
+    that the coarse end of the cycle runs replicated. Takes and returns
+    this rank's (2, my, mx) patch; nodes outside the `active` (mj, mi)
+    corner of the patch are padding rows, z = r there. Symmetric and
+    linear for the symmetric smoothers, like `MGPC`."""
+
+    levels: Tuple[MGLevel, ...]
+    tail: MGPC
+    tiling: _Tiling
+    active: tuple
+    mesh: Any
+    cycles: int = 1
+
+    def __call__(self, r):
+        mj, mi = self.active
+        ra = r[:, :mj, :mi]
+        if self.levels:
+            A0 = self.levels[0].A
+            z = torch.zeros_like(ra)
+            for _ in range(self.cycles):
+                z = z + self._vcycle(0, ra - A0.matvec_field(z))
+        else:  # the whole hierarchy is replicated
+            z = self._scatter(self.tail(self._gather(ra)))
+        if (mj, mi) == tuple(r.shape[-2:]):
+            return z
+        out = r.clone()
+        out[:, :mj, :mi] = z  # in place: out is the copy of r made above
+        return out
+
+    def _gather(self, r):
+        return all_gather_tiles(r.contiguous(), self.mesh, self.tiling.rows, self.tiling.cols)
+
+    def _scatter(self, g):
+        (j0, j1), (i0, i1) = self.tiling.patch(self.mesh)
+        return g[..., j0:j1, i0:i1].contiguous()
+
+    def _vcycle(self, k, r):
+        if k == len(self.levels):
+            return self._scatter(self.tail._vcycle(0, self._gather(r)))
+        lvl = self.levels[k]
+        z = lvl.smoother(r)  # pre-smooth from a zero initial guess
+        res = r - lvl.A.matvec_field(z)
+        zc = self._vcycle(k + 1, _dist_restrict(res, lvl.A))
+        z = z + _dist_prolong(zc, lvl.A)
+        return z + lvl.post(r - lvl.A.matvec_field(z))  # post-smooth
+
+
+def mg_pc_dist(A: DistStencilOperator, opts=None, max_levels=10, coarse_size=5, smoother="sor",
+               cycles=1) -> DistMGPC:
+    """Multigrid for a DistStencilOperator: the serial `mg_pc` hierarchy of
+    its active region, with the same options, levels, smoothers and dense
+    cap (its ValueError is raised before anything is gathered). Each
+    level stays split over the ranks while every rank holds at least two
+    nodes on each axis and it is not the coarsest; from the first level
+    that is not, the hierarchy is built serially on every rank from that
+    level's gathered planes. Collective: every rank calls it."""
+    max_levels, smoother, cycles = _mg_options(opts, max_levels, smoother, cycles)
+    mesh = A.mesh
+    nyt, nxt = A.active_shape or A.grid_shape
+    shape, n_levels = (nyt, nxt), 0
+    while _coarsens(shape, n_levels, max_levels, coarse_size):
+        shape, n_levels = ((shape[0] + 1) // 2, (shape[1] + 1) // 2), n_levels + 1
+    _check_coarsest(*shape)
+
+    tiling = _Tiling.of(nyt, nxt, *A.local_shape, mesh)
+    (j0, j1), (i0, i1) = tiling.patch(mesh)
+    active = (j1 - j0, i1 - i0)
+    op = _level_operator(A.planes[..., : active[0], : active[1]].contiguous(), tiling, mesh)
+    levels = []
+    while len(levels) < n_levels and tiling.min_extent() >= 2:
+        levels.append(MGLevel(op, *_smoothers(op, smoother)))
+        coarse = tiling.coarse()
+        op, tiling = _dist_galerkin(op, coarse), coarse
+    planes = all_gather_tiles(op.planes, mesh, tiling.rows, tiling.cols)
+    tail = mg_pc(StencilOperator(planes), max_levels=max_levels - len(levels), coarse_size=coarse_size,
+                 smoother=smoother, cycles=cycles)
+    return DistMGPC(tuple(levels), tail, tiling, active, mesh, cycles)

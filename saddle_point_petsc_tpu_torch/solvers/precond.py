@@ -555,7 +555,10 @@ class RedBlackSORPC:
     "backward" (black, red), 2 matvecs a sweep. A V-cycle with forward
     pre- and backward post-smoothing is symmetric as a whole
     (solvers/multigrid.py, smoother "sor-fb"). The colour masks are built
-    once, at construction.
+    once, at construction, over the operator's planes: the whole grid, or
+    a distributed operator's patch with the parity of its global origin,
+    so that every rank colours its nodes as the global grid does and each
+    half-step is one distributed matvec.
     """
 
     op: StencilOperator
@@ -568,10 +571,11 @@ class RedBlackSORPC:
     def __post_init__(self):
         if self.order not in _SOR_ORDERS:
             raise ValueError(f"sor order {self.order!r}: use one of {_SOR_ORDERS}")
-        ny, nx = self.op.grid_shape
+        ny, nx = self.op.planes.shape[-2:]
+        j0, i0 = getattr(self.op, "origin", (0, 0))
         dev = self.op.planes.device
-        j = torch.arange(ny, device=dev)[:, None]
-        i = torch.arange(nx, device=dev)[None, :]
+        j = torch.arange(j0, j0 + ny, device=dev)[:, None]
+        i = torch.arange(i0, i0 + nx, device=dev)[None, :]
         red = ((i + j) % 2 == 0)[None]
         black = ~red
         colors = {
@@ -629,7 +633,9 @@ def estimate_lmax(A, M=None, iters=10, generator=None, template=None):
     declares (`krylov.distribution()`): every rank draws the global start
     vector from the same generator and keeps its patch or rows of each
     rank-local leaf, and the norms sum over the ranks, so the estimate is
-    the serial one of the global operator.
+    the serial one of the global operator. A patch is cut where A puts it
+    (`A.global_like`, `A.local_patch`: an unequal tiling of a multigrid
+    level), else where the mesh does.
     """
     if template is None:
         raise ValueError("need a template vector")
@@ -641,7 +647,8 @@ def estimate_lmax(A, M=None, iters=10, generator=None, template=None):
         v = _start_vector(template, generator)
     else:
         leaves = template if isinstance(template, tuple) else (template,)
-        layouts = {"patch": (d.mesh.global_like, d.mesh.local_patch),
+        tiles = A if hasattr(A, "local_patch") else d.mesh
+        layouts = {"patch": (tiles.global_like, tiles.local_patch),
                    "rows": (d.mesh.global_rows_like, d.mesh.local_rows),
                    None: (lambda a: a, lambda g: g)}
         kinds = [layouts[k] for k in d.leaves]
@@ -670,9 +677,13 @@ class ScalarStencilOp:
 
     Ws: torch.Tensor  # (3, 3, ny, nx)
 
+    def pad(self, x):
+        """x with its ring of zero (Dirichlet) ghosts."""
+        return F.pad(x, (1, 1, 1, 1))
+
     def __call__(self, x):
         ny, nx = self.Ws.shape[-2:]
-        xp = F.pad(x, (1, 1, 1, 1))
+        xp = self.pad(x)
         y = torch.zeros_like(x)
         for dj in range(3):
             for di in range(3):

@@ -5,6 +5,7 @@
     python -m saddle_point_petsc_tpu_torch.tools.dist_probe cli [--repeats 3]
     python -m saddle_point_petsc_tpu_torch.tools.dist_probe aij [--ranks 4]
     python -m saddle_point_petsc_tpu_torch.tools.dist_probe gamg [--ranks 4]
+    python -m saddle_point_petsc_tpu_torch.tools.dist_probe mg [--ranks 4]
 
 `overhead` (one card, a world of one on NCCL): the host time of one
 all_reduce of a 0-d tensor, of a halo exchange with no neighbours, and of
@@ -47,6 +48,14 @@ f64 over NCCL against gloo on the CPU (counts within 1), then
 the streaming setup, run global, stream, stream, global; CG to rtol 1e-8
 iterations and ms per iteration; rank 0's host profile of a streaming
 setup.
+
+`mg` (as many cards as ranks): the distributed geometric multigrid
+(-pc_type mg -dist, `multigrid.mg_pc_dist`). First CG + MG at 65^2 f64 on
+a 2 x (N/2) mesh over NCCL against the same command over gloo on the CPU
+(equal its= lines), then (`mg-rank`, one process per rank) the 1025^2
+Poisson in f64 on N ranks and on one: each rank's patch on every split
+level, PCSetUp seconds, CG to rtol 1e-8 iterations and ms per iteration,
+and the milliseconds of one V-cycle (20 in a row between barriers).
 
 Every time is on the host clock around synchronized device work; the
 card's name and power limit are printed with them.
@@ -376,9 +385,77 @@ def gamg_runs(ranks):
             _torchrun(n, ["gamg-rank"], tmp, env, module="saddle_point_petsc_tpu_torch.tools.dist_probe")
 
 
+MG_SMALL = ["-da_grid_x", "65", "-da_grid_y", "65", "-dtype", "f64", "-ksp_type", "cg", "-pc_type", "mg",
+            "-ksp_rtol", "1e-8", "-ksp_converged_reason", "-dist", "-no_vtk"]
+
+
+def mg_rank(side=1025):
+    """One rank of `mg`, under torchrun: mg_pc_dist on the side^2 Poisson in
+    f64 (the SOR smoother), its setup timed, CG to rtol 1e-8 once to warm
+    and once timed, then 20 V-cycles in a row, each step between barriers.
+    Rank 0 prints."""
+    import torch.distributed as dist
+
+    from saddle_point_petsc_tpu_torch.parallel import dist as pd
+    from saddle_point_petsc_tpu_torch.parallel import mesh as pmesh
+    from saddle_point_petsc_tpu_torch.solvers import krylov, multigrid
+
+    dev, created = pmesh.init_from_env(torch.device("cuda"))
+    try:
+        mesh = pmesh.ProcessMesh.create(ny=side, nx=side, device=dev)
+        A, f, _ = pd.assemble_poisson_dist(pd.DistGrid.create(side - 1, side - 1, mesh), dtype=torch.float64)
+
+        def timed(fn, reps=1):
+            dist.barrier(device_ids=[dev.index])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                out = fn()
+            torch.cuda.synchronize()
+            dist.barrier(device_ids=[dev.index])
+            return out, (time.perf_counter() - t0) / reps
+
+        M, t_setup = timed(lambda: multigrid.mg_pc_dist(A))
+        patches = [None] * mesh.size
+        dist.all_gather_object(patches, [lvl.A.local_shape for lvl in M.levels])
+
+        def solve():
+            return krylov.cg(A, f, M=M, rtol=1e-8, maxiter=200)
+
+        solve()
+        res, t_solve = timed(solve)
+        _, t_cycle = timed(lambda: M(f), reps=20)
+        if mesh.rank == 0:
+            print(f"{side}^2 f64 CG + mg_pc_dist (sor) on {mesh.size} rank(s), mesh {mesh.shape}: {res.iterations} its, "
+                  f"{res.reason_name()}, PCSetUp {t_setup:.3f} s, KSPSolve {t_solve:.4f} s, "
+                  f"{t_solve / res.iterations * 1e3:.3f} ms/it, V-cycle {t_cycle * 1e3:.3f} ms; split levels "
+                  f"{[lvl.A.grid_shape[0] for lvl in M.levels]}, gathered {M.tiling.shape}; patches by rank "
+                  f"{patches} ({_card()}, each rank its own card)")
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def mg_runs(ranks):
+    card = _card()
+    shape = f"2,{ranks // 2}" if ranks > 1 else "1,1"
+    pkg = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = {"PYTHONPATH": pkg + os.pathsep + os.environ.get("PYTHONPATH", ""), "OMP_NUM_THREADS": "1"}
+    its = re.compile(r"its=(\d+), reason=(\w+)")
+    with tempfile.TemporaryDirectory() as tmp:
+        got = {device: its.findall(_torchrun(ranks, ["-device", device, "-mesh", shape] + MG_SMALL, tmp, env))
+               for device in ("cuda", "cpu")}
+        print(f"65^2 f64 -dist CG + mg on a {shape} mesh: NCCL {got['cuda']}, gloo {got['cpu']} ({card})")
+        if got["cuda"] != got["cpu"]:
+            raise SystemExit("NCCL and gloo disagree")
+        for n in (ranks, 1):
+            _torchrun(n, ["mg-rank"], tmp, env, module="saddle_point_petsc_tpu_torch.tools.dist_probe")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("mode", choices=("overhead", "cli", "mesh", "aij", "aij-rank", "gamg", "gamg-rank"))
+    ap.add_argument("mode", choices=("overhead", "cli", "mesh", "aij", "aij-rank", "gamg", "gamg-rank", "mg",
+                                     "mg-rank"))
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args(argv)
@@ -394,6 +471,10 @@ def main(argv=None):
         gamg_runs(args.ranks)
     elif args.mode == "gamg-rank":
         gamg_rank()
+    elif args.mode == "mg":
+        mg_runs(args.ranks)
+    elif args.mode == "mg-rank":
+        mg_rank()
     else:
         mesh_runs(args.ranks)
 

@@ -91,6 +91,11 @@ class LogView:
         print("-" * 78, file=file)
 
 
+def spmv_flops(nnz):
+    """2 flops per stored entry."""
+    return 2.0 * nnz
+
+
 def solve_summary(result, nnz=None, elapsed_s=None):
     """Structured run summary (its, rnorm, nnz/s) as a dict."""
     out = {

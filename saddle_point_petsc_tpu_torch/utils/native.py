@@ -1,6 +1,6 @@
 """ctypes bindings for the port's native host kernels (csrc/native_host.cpp):
-ILU(0) factorization, reverse Cuthill-McKee ordering and greedy
-aggregation.
+ILU(0) factorization, reverse Cuthill-McKee ordering, greedy aggregation,
+COO -> CSR with duplicates summed, and exact CSR triangular solves.
 
 The library is built with g++ at first use into `csrc/_build/` (ignored by
 git), named by a hash of the source and the flags, under a file lock
@@ -56,6 +56,12 @@ def _lib():
         lib.sptpu_rcm.argtypes = [ctypes.c_int64, i32p, i32p, i32p]
         lib.sptpu_aggregate.restype = ctypes.c_int64
         lib.sptpu_aggregate.argtypes = [ctypes.c_int64, i32p, i32p, i32p]
+        i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        lib.sptpu_coo_to_csr.restype = ctypes.c_int64
+        lib.sptpu_coo_to_csr.argtypes = [ctypes.c_int64, ctypes.c_int64, i32p, i32p, f64p, i32p, i32p, f64p, i64p]
+        for name in ("sptpu_lower_solve_unit", "sptpu_upper_solve"):
+            getattr(lib, name).restype = None
+            getattr(lib, name).argtypes = [ctypes.c_int64, i32p, i32p, f64p, f64p, f64p]
         _LIB = lib
     return _LIB
 
@@ -89,6 +95,48 @@ def ilu0(indptr, indices, data, n):
     if rc != 0:
         raise ZeroDivisionError(f"ILU(0): zero pivot at row {rc - 1}")
     return data
+
+
+def coo_to_csr(rows, cols, vals, m):
+    """COO triplets -> (indptr, cols, vals) of an m-row CSR: sorted by row,
+    then column, duplicates summed; rows < 0 (padding) dropped."""
+    lib = _lib()
+    rows = np.ascontiguousarray(rows, np.int32)
+    nnz = rows.shape[0]
+    if len(cols) != nnz or len(vals) != nnz:
+        raise ValueError(f"coo_to_csr: {nnz} rows, {len(cols)} columns and {len(vals)} values")
+    indptr = np.zeros(m + 1, np.int32)
+    out_cols = np.zeros(nnz, np.int32)
+    out_vals = np.zeros(nnz, np.float64)
+    out_nnz = np.zeros(1, np.int64)
+    lib.sptpu_coo_to_csr(m, nnz, rows, np.ascontiguousarray(cols, np.int32),
+                         np.ascontiguousarray(vals, np.float64), indptr, out_cols, out_vals, out_nnz)
+    k = int(out_nnz[0])
+    return indptr, out_cols[:k], out_vals[:k]
+
+
+def _triangular(name, indptr, indices, data, b):
+    n = b.shape[0]
+    if len(indptr) != n + 1 or len(indices) != len(data) or len(indices) < indptr[-1]:
+        raise ValueError(f"{name}: a CSR of {n} rows needs {n + 1} row pointers and one value per index")
+    if len(indices) and not 0 <= np.min(indices) <= np.max(indices) < n:
+        raise ValueError(f"{name}: column indices outside [0, {n})")
+    x = np.zeros(n, np.float64)
+    getattr(_lib(), name)(n, np.ascontiguousarray(indptr, np.int32),
+                          np.ascontiguousarray(indices, np.int32), np.ascontiguousarray(data, np.float64),
+                          np.ascontiguousarray(b, np.float64), x)
+    return x
+
+
+def lower_solve_unit(indptr, indices, data, b):
+    """x with (I + L) x = b, L the strictly lower CSR (indptr, indices, data)."""
+    return _triangular("sptpu_lower_solve_unit", indptr, indices, data, b)
+
+
+def upper_solve(indptr, indices, data, b):
+    """x with U x = b, U the upper CSR with its diagonal (entries left of the
+    diagonal are skipped; a row without a diagonal divides by 1)."""
+    return _triangular("sptpu_upper_solve", indptr, indices, data, b)
 
 
 def aggregate(indptr, indices, n):

@@ -3,9 +3,11 @@ library API's device default.
 
 - `utils/options.py`: `parse_argv` and `Options` give the JAX module's
   dicts and typed values exactly (both are pure Python).
-- `utils/native.py`: `rcm` and `aggregate` give the JAX module's arrays
+- `utils/native.py`: `rcm`, `aggregate`, `coo_to_csr`,
+  `lower_solve_unit` and `upper_solve` give the JAX module's arrays
   exactly (the same C++ functions, compiled twice); the port's library is
-  built under its own `csrc/_build/`.
+  built under its own `csrc/_build/`. `monitor.spmv_flops` is the JAX
+  one's count.
 - The library API defaults to the CUDA card: without one, every entry
   point that makes tensors raises unless it is given `device="cpu"`.
 """
@@ -15,12 +17,14 @@ import scipy.sparse as sps
 import torch
 
 from saddle_point_petsc_tpu.models import poisson as jpoisson
+from saddle_point_petsc_tpu.utils import monitor as jmonitor
 from saddle_point_petsc_tpu.utils import native as jnative
 from saddle_point_petsc_tpu.utils import options as joptions
 from saddle_point_petsc_tpu_torch.models import poisson as tpoisson
 from saddle_point_petsc_tpu_torch.models import saddle as tsaddle
 from saddle_point_petsc_tpu_torch.ops import sparse as tsp
 from saddle_point_petsc_tpu_torch.csrc import BUILD_DIR
+from saddle_point_petsc_tpu_torch.utils import monitor as tmonitor
 from saddle_point_petsc_tpu_torch.utils import native as tnative
 from saddle_point_petsc_tpu_torch.utils import options as toptions
 from saddle_point_petsc_tpu_torch.utils.device import resolve_device
@@ -110,6 +114,63 @@ def test_native_matches_jax(graph):
     assert na_t == na_j and na_t > 1
     np.testing.assert_array_equal(agg_t, agg_j)
     assert sorted(tnative.rcm(a.indptr, a.indices, n)) == list(range(n))
+
+
+def test_native_coo_to_csr_matches_jax():
+    """Duplicates summed, a padding row (-1) and a row past m dropped, empty
+    rows kept: the JAX binding's arrays bit for bit, and scipy's CSR."""
+    if not (jnative.available() and tnative.available()):
+        pytest.skip("no C++ compiler for the native host libraries")
+    rng = np.random.default_rng(11)
+    m, nnz = 40, 300
+    rows = rng.integers(0, m - 5, nnz).astype(np.int32)  # the last 5 rows stay empty
+    cols = rng.integers(0, m, nnz).astype(np.int32)
+    rows[:50], cols[:50] = rows[50:100], cols[50:100]  # duplicates
+    rows[7], rows[8] = -1, m  # padding, and a row past the matrix
+    vals = rng.standard_normal(nnz)
+    got, ref = tnative.coo_to_csr(rows, cols, vals, m), jnative.coo_to_csr(rows, cols, vals, m)
+    for g, r in zip(got, ref, strict=True):
+        np.testing.assert_array_equal(g, r)
+    keep = (rows >= 0) & (rows < m)
+    want = sps.coo_matrix((vals[keep], (rows[keep], cols[keep])), shape=(m, m)).tocsr()
+    want.sum_duplicates()
+    np.testing.assert_array_equal(got[0], want.indptr)
+    np.testing.assert_array_equal(got[1], want.indices)
+    np.testing.assert_allclose(got[2], want.data, rtol=1e-12)
+    with pytest.raises(ValueError, match="300 rows, 299 columns"):
+        tnative.coo_to_csr(rows, cols[:-1], vals, m)
+
+
+@pytest.mark.parametrize("graph", ["poisson33", "random"])
+def test_native_triangular_solves_match_jax(graph):
+    """The exact CSR triangular solves of an ILU(0) factorization: the JAX
+    binding's bits, and dense solves of the unit-lower and upper factors
+    to 1e-10."""
+    if not (jnative.available() and tnative.available()):
+        pytest.skip("no C++ compiler for the native host libraries")
+    a = _poisson_pattern() if graph == "poisson33" else _random_pattern(n=200)
+    n = a.shape[0]
+    a = (a + sps.diags(np.asarray(abs(a).sum(axis=1)).ravel() + 1.0)).tocsr()  # diagonally dominant
+    a.sort_indices()
+    f = sps.csr_matrix((tnative.ilu0(a.indptr, a.indices, a.data, n), a.indices, a.indptr), shape=(n, n))
+    L, U = sps.tril(f, -1).tocsr(), sps.triu(f).tocsr()
+    b = np.random.default_rng(3).standard_normal(n)
+    y = tnative.lower_solve_unit(L.indptr, L.indices, L.data, b)
+    np.testing.assert_array_equal(y, jnative.lower_solve_unit(L.indptr, L.indices, L.data, b))
+    np.testing.assert_allclose((L + sps.identity(n)) @ y, b, atol=1e-10)
+    x = tnative.upper_solve(U.indptr, U.indices, U.data, y)
+    np.testing.assert_array_equal(x, jnative.upper_solve(U.indptr, U.indices, U.data, y))
+    np.testing.assert_allclose(U @ x, y, atol=1e-10)
+    # malformed input is refused before the library reads past an array
+    with pytest.raises(ValueError, match="row pointers"):
+        tnative.upper_solve(U.indptr[:-1], U.indices, U.data, y)
+    with pytest.raises(ValueError, match="column indices"):
+        tnative.lower_solve_unit(L.indptr, L.indices + n, L.data, b)
+
+
+@pytest.mark.parametrize("nnz", [0, 7, 2_101_250 * 18])
+def test_spmv_flops_matches_jax(nnz):
+    assert tmonitor.spmv_flops(nnz) == jmonitor.spmv_flops(nnz) == 2.0 * nnz
 
 
 def test_native_builds_in_port_tree():
