@@ -180,6 +180,23 @@ Phases (each passes or raises; the script exits non-zero on any failure):
     the 36^2 coarsest gathered, 2592 dofs), B1 launches per iteration,
     the f64 true residual and the peak device memory; then B1 against
     its plain version at every level's grid of (d).
+24. The JAX bench's distributed mixed-precision refinement
+    (`bench_refined_kkt_dist`, bench.py:407-583) in a world of one on NCCL
+    (its own FileStore and group, destroyed at the end): the trig KKT
+    system assembled in f64 by `assemble_saddle_dist`, its f32 copy for
+    the inner operator and PC (built once), `solve_refined_kkt_fused` to
+    rtol 1e-8 with inner rtol 1e-3 and the f64 residual through the
+    distributed f64 operator. (a) The bench's kkt_rtol1e8_dist setting:
+    705^2 nodes (994,054 KKT rows), MINRES + Schur(diag) inner, at most
+    6000 inner iterations, beside the serial refinement of the same arrays
+    (equal cycles and inner iterations, x bit-equal); (b) config 5: 2241^2
+    (10,044,166 rows), MINRES + Schur(diag, distributed MG, Chebyshev)
+    inner, at most 20000, beside phase 23 (d)'s direct f64 MINRES. Each
+    run prints cycles, inner iterations, reason, Assembly, PCSetUp and
+    solve seconds, B1 launches in f32 (inner) and f64 (residual), the peak
+    device memory and the f64 true relative residual (at most 1e-8),
+    recomputed with the plain serial matvec on the gathered patch; then B1
+    against its plain version in both types at its grid.
 
 Each kernel's timing runs in the order plain, kernel, library, library,
 kernel, plain (medians of 60 launches each) and prints the kernel's
@@ -225,6 +242,7 @@ from saddle_point_petsc_tpu_torch.parallel import halo
 from saddle_point_petsc_tpu_torch.parallel import mesh as pmesh
 from saddle_point_petsc_tpu_torch.solvers import amg, ilu_stencil, krylov, multigrid, precond, refine
 from saddle_point_petsc_tpu_torch.solvers.ksp import KSP
+from saddle_point_petsc_tpu_torch.tools import dist_probe
 from saddle_point_petsc_tpu_torch.solvers.operators import SaddleOperator
 from saddle_point_petsc_tpu_torch.utils import checkpoint, native
 from saddle_point_petsc_tpu_torch.utils.options import Options
@@ -463,7 +481,7 @@ def phase_f32(tmp):
         its = run.result.iterations
         t = run.log.phases["KSPSolve"].total_s
         print(f"{n}^2 f32 MINRES: {its} its, solve {t:.4f} s, {t / its * 1e3:.4f} ms/it")
-        out[n] = {"its": its, "solve_s": t, "true_rel": _true_rel_kkt(
+        out[n] = {"its": its, "solve_s": t, "true_rel": dist_probe.true_rel_kkt(
             run.problem.A.planes.double(), run.problem.Bf.double(), run.problem.rhs, run.result.x)}
         if n == 256:
             print(f"256^2 f32 iterations {its} beside {BENCH_R04_KKT_ITERATIONS} in BENCH_r04.json")
@@ -1060,14 +1078,6 @@ def phase_mat_solve_dia_f32(dev, gamg_run, b6_ms):
 MG_GRID = 1025  # node grid side of phases 15-17's largest runs: eight MG levels, 1025 -> 5
 
 
-def _true_rel_kkt(planes64, Bf64, rhs, x):
-    """|rhs - K x| / |rhs| in f64 through the plain stencil matvec."""
-    K = SaddleOperator(lambda u: spmv.planes_matvec_field(planes64, u), Bf64)
-    x64 = tuple(t.double() for t in x)
-    rhs64 = tuple(t.double() for t in rhs)
-    return (krylov.tnorm(krylov.tsub(rhs64, K(x64))) / krylov.tnorm(rhs64)).item()
-
-
 def phase_mg(dev):
     """Phase 15: the MG hierarchy at 1025^2 f32 on the card."""
     n = MG_GRID
@@ -1157,7 +1167,7 @@ def phase_saddle_mg(minres):
             counts = _counts()
         prob, res = run.problem, run.result
         t_setup, t_solve = (run.log.phases[p].total_s for p in ("PCSetUp", "KSPSolve"))
-        true_rel = _true_rel_kkt(prob.A.planes.double(), prob.Bf.double(), prob.rhs, res.x)
+        true_rel = dist_probe.true_rel_kkt(prob.A.planes.double(), prob.Bf.double(), prob.rhs, res.x)
         its = res.iterations
         print(
             f"{n}^2 f32 FGMRES + Schur({fact}, MG chebyshev): {its} its, {res.reason_name()}, PCSetUp "
@@ -1207,7 +1217,7 @@ def phase_refine(dev, minres_f64):
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             b1 = spmv.launches
-            true_rel = _true_rel_kkt(planes64, Bf64, prob.rhs, x)
+            true_rel = dist_probe.true_rel_kkt(planes64, Bf64, prob.rhs, x)
             line = (f"{n}^2 refinement, f64 residual, f32 FGMRES + Schur({fact}, MG chebyshev) inner: {cycles} "
                     f"cycles, {inner_its} inner its, setup {t1 - t0:.3f} s, solve {t2 - t1:.4f} s, B1 launches "
                     f"{b1}, |r|/|b| {rn / rn0:.3e} (loop), true relative residual {true_rel:.3e} (f64, plain)")
@@ -1232,7 +1242,7 @@ def phase_refine(dev, minres_f64):
         res = krylov.fgmres(prob.K, prob.rhs, M=M, rtol=1e-8, maxiter=300, restart=30)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        true_rel = _true_rel_kkt(planes64, Bf64, prob.rhs, res.x)
+        true_rel = dist_probe.true_rel_kkt(planes64, Bf64, prob.rhs, res.x)
         print(f"{n}^2 direct f64 FGMRES + Schur(upper, MG chebyshev): {res.iterations} its, {res.reason_name()}, "
               f"setup {t1 - t0:.3f} s, solve {t2 - t1:.4f} s ({(t2 - t1) / max(res.iterations, 1) * 1e3:.3f} ms/it), "
               f"B1 launches {spmv.launches}, true relative residual {true_rel:.3e}")
@@ -1478,7 +1488,7 @@ def phase_dist(dev, tmp, card):
             res, prob = run.result, run.problem
             its = res.iterations
             t_asm, t_setup, t_solve = (run.log.phases[p].total_s for p in ("Assembly", "PCSetUp", "KSPSolve"))
-            true_rel = _true_rel_kkt(prob.A.planes.double(), prob.Bf.double(), prob.rhs, res.x)
+            true_rel = dist_probe.true_rel_kkt(prob.A.planes.double(), prob.Bf.double(), prob.rhs, res.x)
             if label in out and its != out[label]["its"]:
                 raise AssertionError(f"{label}: {its} its, the first run took {out[label]['its']}")
             ms = min(t_solve / its * 1e3, out.get(label, {}).get("ms", float("inf")))
@@ -1948,7 +1958,7 @@ def _dist_mg_poisson(dev, card):
 
 def _config5(dev, card):
     """Phase 23 (d): BASELINE config 5's solver at 2241^2 through the CLI.
-    Returns its B1 launches."""
+    Returns its B1 launches, iterations and KSPSolve seconds."""
     n = CONFIG5_GRID
     argv = ["-device", "cuda", "-problem_type", "saddle", "-dist", "-da_grid_x", str(n), "-da_grid_y", str(n),
             "-dtype", "f64", "-body_force", "trig"] + CONFIG5_PC + ["-ksp_converged_reason", "-log_view", "-no_vtk"]
@@ -1960,7 +1970,7 @@ def _config5(dev, card):
     its = res.iterations
     t_asm, t_setup, t_solve = (run.log.phases[p].total_s for p in ("Assembly", "PCSetUp", "KSPSolve"))
     rows = prob.A.n + prob.Bf.shape[0]
-    true_rel = _true_rel_kkt(prob.A.planes, prob.Bf, prob.rhs, res.x)
+    true_rel = dist_probe.true_rel_kkt(prob.A.planes, prob.Bf, prob.rhs, res.x)
     print(f"  config 5, {n}^2 f64 ({rows} KKT rows), MINRES + Schur(diag, MG chebyshev), -dist world of one: {its} its, "
           f"{res.reason_name()} (reason {res.converged_reason}), Assembly {t_asm:.3f} s, PCSetUp {t_setup:.3f} s, "
           f"KSPSolve {t_solve:.4f} s, {t_solve / its * 1e3:.4f} ms/it, B1 {counts['B1']} launches "
@@ -1979,12 +1989,12 @@ def _config5(dev, card):
         x = torch.randn((2, *planes.shape[-2:]), generator=gen, dtype=planes.dtype, device=dev)
         _compare(f"B1  config 5 level grid {planes.shape[-1]}^2 f64", spmv.stencil_spmv(planes, x),
                  spmv.planes_matvec_field(planes, x), torch.float64)
-    return counts["B1"]
+    return {"B1": counts["B1"], "its": its, "solve_s": t_solve}
 
 
 def phase_mg_dist(dev, tmp, card):
     """Phase 23: the distributed SOR, fieldsplit and MG in a world of one on
-    NCCL. Returns config 5's B1 launches."""
+    NCCL. Returns config 5's B1 launches, iterations and KSPSolve seconds."""
     tdist.init_process_group("nccl", store=tdist.FileStore(os.path.join(tmp, "nccl_store_mg"), 1), rank=0,
                              world_size=1, device_id=dev, timeout=datetime.timedelta(seconds=300))
     try:
@@ -2007,13 +2017,112 @@ def phase_mg_dist(dev, tmp, card):
         _dist_vs_serial(f"{n}^2 f64 saddle MINRES + Schur(diag, MG chebyshev)", kkt)
         print(f"phase 23 (c): {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        b1 = _config5(dev, card)
+        config5 = _config5(dev, card)
         print(f"phase 23 (d): {time.perf_counter() - t0:.1f} s")
     finally:
         tdist.destroy_process_group()
     if tdist.is_initialized():
         raise AssertionError("the process group outlived phase 23")
-    return b1
+    return config5
+
+
+REFINE_DIST_GRID = 705  # phase 24 (a): the JAX bench's kkt_rtol1e8_dist, 994,054 KKT rows (bench.py:407, :1164)
+
+
+def _refined_dist(dev, mesh, n, inner, inner_maxiter, card):
+    """One refinement of phase 24: the n^2 trig KKT system assembled in
+    f64 on the mesh, its f32 copy and the inner PC built once (PCSetUp),
+    then solve_refined_kkt_fused to rtol 1e-8 with inner rtol 1e-3, every
+    kernel count set to 0 just before. Returns the f64 system, x, and a
+    dict of the numbers printed."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    K, rhs, _ = pdist.assemble_saddle_dist(pdist.DistGrid.create(n - 1, n - 1, mesh), body_force="trig")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    K32 = dist_probe.kkt_f32(K)
+    kw = dist_probe.refine_inner(K32, inner)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    x, cycles, its, rn, rn0 = refine.solve_refined_kkt_fused(
+        K32, rhs, rtol=1e-8, planes_df=K.A.planes, Bf_df=K.Bf, inner_rtol=1e-3, inner_maxiter=inner_maxiter, **kw)()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    b1 = dict(spmv.dtype_launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    # independent of refine.py: the plain serial f64 matvec on the (here
+    # trivially) gathered patch
+    planes, Bf, f, u = (pmesh.gather_field(t, mesh) for t in (K.A.planes, K.Bf, rhs[0], x[0]))
+    true_rel = dist_probe.true_rel_kkt(planes, Bf, (f, rhs[1]), (u, x[1]), (n, n))
+    rows = n * n * 2 + K.Bf.shape[0]
+    out = {"cycles": cycles, "its": its, "reason": "CONVERGED_RTOL" if rn <= 1e-8 * rn0 else "DIVERGED_ITS",
+           "asm_s": t1 - t0, "setup_s": t2 - t1, "solve_s": t3 - t2, "b1": b1, "peak": peak, "true_rel": true_rel}
+    print(f"  {n}^2 ({rows} KKT rows) refinement, f64 residual, f32 {inner} inner, -dist world of one: {cycles} "
+          f"cycles, {its} inner its, {out['reason']}, Assembly {out['asm_s']:.3f} s, PCSetUp {out['setup_s']:.3f} s, "
+          f"solve {out['solve_s']:.4f} s, B1 launches {b1[torch.float32]} f32 (inner) and {b1[torch.float64]} f64 "
+          f"(residual), |r|/|b| {rn / rn0:.3e} (loop), true relative residual {true_rel:.3e} (f64, plain), peak "
+          f"device memory {peak / 2**30:.2f} GiB ({card})")
+    if x[0].dtype != torch.float64 or b1[torch.float32] < its or b1[torch.float64] < cycles + 1:
+        raise AssertionError(f"refinement at {n}^2: x {x[0].dtype}, B1 launches {b1} for {its} inner its, "
+                             f"{cycles} cycles")
+    if out["reason"] != "CONVERGED_RTOL" or not true_rel <= 1e-8:
+        raise AssertionError(f"refinement at {n}^2: {out['reason']}, true residual {true_rel}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    for dtype in (torch.float32, torch.float64):
+        planes = K.A.planes.to(dtype)
+        v = torch.randn(x[0].shape, generator=gen, dtype=dtype, device=dev)
+        _compare(f"B1  phase 24 grid {n}^2", spmv.stencil_spmv(planes, v), spmv.planes_matvec_field(planes, v), dtype)
+    return K, rhs, x, out
+
+
+def phase_refine_dist(dev, tmp, card, config5):
+    """Phase 24: the JAX bench's distributed refinement
+    (`bench_refined_kkt_dist`) in a world of one on NCCL: (a) its
+    kkt_rtol1e8_dist setting beside the serial refinement of the same
+    system, (b) config 5 beside phase 23 (d)'s direct f64 MINRES. Returns
+    the B1 launches of (a) and (b)."""
+    tdist.init_process_group("nccl", store=tdist.FileStore(os.path.join(tmp, "nccl_store_refine"), 1), rank=0,
+                             world_size=1, device_id=dev, timeout=datetime.timedelta(seconds=300))
+    try:
+        if tdist.get_backend() != "nccl":
+            raise AssertionError(f"backend {tdist.get_backend()}, not nccl")
+        mesh = pmesh.ProcessMesh.create(device=dev)
+        t0 = time.perf_counter()
+        n = REFINE_DIST_GRID
+        K, rhs, xd, a = _refined_dist(dev, mesh, n, "minres-diag", 6000, card)
+        # the serial refinement of the same arrays: a world of one is the serial route
+        Ks = SaddleOperator(StencilOperator(K.A.planes), K.Bf)
+        Ks32 = dist_probe.kkt_f32(Ks)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        xs, cycles, its, rn, rn0 = refine.solve_refined_kkt_fused(
+            Ks32, rhs, rtol=1e-8, planes_df=Ks.A.planes, Bf_df=Ks.Bf, inner_rtol=1e-3, inner_maxiter=6000,
+            **dist_probe.refine_inner(Ks32, "minres-diag"))()
+        torch.cuda.synchronize()
+        t_serial = time.perf_counter() - t1
+        same = all(torch.equal(p, q) for p, q in zip(xd, xs))
+        print(f"  {n}^2 serial refinement of the same system: {cycles} cycles, {its} inner its, PCSetUp + solve "
+              f"{t_serial:.4f} s; x bit-equal to the -dist run: {same}")
+        if (cycles, its) != (a["cycles"], a["its"]) or not same:
+            raise AssertionError(f"{n}^2: -dist {a['cycles']} cycles, {a['its']} its; serial {cycles}, {its}; "
+                                 f"x equal {same}")
+        del K, rhs, xd, xs, Ks, Ks32
+        print(f"phase 24 (a): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        *_, b = _refined_dist(dev, mesh, CONFIG5_GRID, "minres-mg", 20000, card)
+        print(f"  config 5, {CONFIG5_GRID}^2: refined {b['solve_s']:.4f} s ({b['cycles']} cycles, {b['its']} f32 inner "
+              f"its); phase 23 (d)'s direct f64 MINRES KSPSolve {config5['solve_s']:.4f} s ({config5['its']} its); "
+              f"ratio direct/refined {config5['solve_s'] / b['solve_s']:.2f} ({card})")
+        print(f"phase 24 (b): {time.perf_counter() - t0:.1f} s")
+    finally:
+        tdist.destroy_process_group()
+    if tdist.is_initialized():
+        raise AssertionError("the process group outlived phase 24")
+    return sum(r["b1"][dtype] for r in (a, b) for dtype in r["b1"])
 
 
 def main():
@@ -2066,9 +2175,13 @@ def main():
         dist_gamg_counts = phase_gamg_dist(dev, tmp, card)
         print(f"phase 22: {time.perf_counter() - t0:.1f} s ({card})")
         t0 = time.perf_counter()
-        # phase 4's saddle route and phase 23's config 5
-        launches += phase_mg_dist(dev, tmp, card)
+        config5 = phase_mg_dist(dev, tmp, card)
         print(f"phase 23: {time.perf_counter() - t0:.1f} s ({card})")
+        t0 = time.perf_counter()
+        refine_launches = phase_refine_dist(dev, tmp, card, config5)
+        print(f"phase 24: {time.perf_counter() - t0:.1f} s ({card})")
+        # phase 4's saddle route, phase 23's config 5 and phase 24's refinements
+        launches += config5["B1"] + refine_launches
 
     def row(name, source, replaces, launches, err, numbers):
         return {

@@ -11,7 +11,8 @@ plain PyTorch versions, `planes_matvec_field` and `planes_matvec_padded`
 (from ops/stencil.py, re-exported here). On CUDA tensors they launch the
 CUDA kernel in csrc/stencil_spmv.cu, built at first use by `_build`, or
 raise. `launches` counts the kernel launches, `entry_launches` splits them
-by entry point; `reset_launches()` zeroes both.
+by entry point and `dtype_launches` by type; `reset_launches()` zeroes
+all three.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from saddle_point_petsc_tpu_torch.ops.stencil import (  # noqa: F401
 
 launches = 0  # kernel B1 launches since the last reset_launches()
 entry_launches = {"stencil_spmv": 0, "stencil_spmv_padded": 0}  # the same, by entry
+dtype_launches = {torch.float32: 0, torch.float64: 0}  # the same, by type
 
 _DTYPES = (torch.float32, torch.float64)
 
@@ -31,8 +33,9 @@ _DTYPES = (torch.float32, torch.float64)
 def reset_launches():
     global launches
     launches = 0
-    for k in entry_launches:
-        entry_launches[k] = 0
+    for counts in (entry_launches, dtype_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def _check(planes, x, halo):
@@ -94,6 +97,7 @@ def _launch(planes, x, padded):
     _build.check(lib, "stencil_spmv", rc)
     launches += 1
     entry_launches["stencil_spmv_padded" if padded else "stencil_spmv"] += 1
+    dtype_launches[planes.dtype] += 1
     return y
 
 

@@ -15,6 +15,12 @@ package carries x, the residual and the operator as double-float pairs
 every "_df" argument here (`b_df`, `planes_df`, `Bf_df`) is a float64
 tensor, or a tuple of them, and `matvec_df` a float64 matvec. The
 solves are host loops that fetch one residual norm per cycle.
+
+The residual's operator is the inner operator's own type over the
+float64 arrays: on a distributed operator (parallel/dist.py) the float64
+matvec exchanges halos and sums B u over the ranks as the float32 one
+does, the "_df" arrays are this rank's patches, and the residual norms
+sum over the ranks (`krylov.reduces_over_ranks`).
 """
 from __future__ import annotations
 
@@ -26,7 +32,6 @@ import torch
 
 from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator
 from saddle_point_petsc_tpu_torch.solvers import krylov, precond
-from saddle_point_petsc_tpu_torch.solvers.operators import constraint_apply, constraint_apply_t
 from saddle_point_petsc_tpu_torch.utils.device import resolve_device
 
 _F64, _F32 = torch.float64, torch.float32
@@ -76,24 +81,43 @@ def _to(v, dtype):
     return tuple(t.to(dtype) for t in v) if isinstance(v, tuple) else v.to(dtype)
 
 
+def _shaped_like(name, t, like):
+    """t, checked to have the shape of `like` (for a distributed operator,
+    this rank's patch): never sliced to fit."""
+    if tuple(t.shape) != tuple(like.shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, the operator's is {tuple(like.shape)} "
+                         "(a distributed operator takes this rank's patch)")
+    return t
+
+
+def _with_planes(A, planes):
+    """A's own operator type over `planes` (a DistStencilOperator keeps its
+    mesh, halo exchange and padding); a StencilOperator when A is a
+    stand-in that only carries planes."""
+    return dataclasses.replace(A, planes=planes) if dataclasses.is_dataclass(A) else StencilOperator(planes)
+
+
 @krylov.reduces_over_ranks
 def solve_refined(A, b_df, inner_solve: Callable, rtol=1e-8, max_cycles=10, matvec_df: Callable = None):
     """Iterative refinement on a (2, ny, nx)-field operator.
 
     A: the float32 operator of the inner solve, with `.planes`; its
     `planes_df` (float64 planes), when present, define the residual,
-    else its planes widened to float64. b_df: the float64 right-hand side.
+    else its planes widened to float64. The residual's operator is A's own
+    type over those planes (`_with_planes`), so a DistStencilOperator's
+    residual exchanges its halos. b_df: the float64 right-hand side.
     inner_solve: r32 -> (dx32, iterations), e.g. `inner_cg`. matvec_df:
     an optional float64 matvec replacing the stencil planes' one, with
     which A may be any operator (only the inner solve uses it), such as a
     float64 DistAIJ beside a float32 one (parallel/dist_csr.py: the JAX
     package's `dist_aij_matvec_df`). For a distributed A (one with a mesh)
-    the vectors are this rank's parts and every residual norm sums over
-    its ranks.
+    the vectors and `planes_df` are this rank's patches and every residual
+    norm sums over its ranks.
     """
     if matvec_df is None:
         planes_df = getattr(A, "planes_df", None)
-        matvec_df = StencilOperator((A.planes if planes_df is None else planes_df).to(_F64))
+        planes = A.planes if planes_df is None else _shaped_like("planes_df", planes_df, A.planes)
+        matvec_df = _with_planes(A, planes.to(_F64))
     bnorm = krylov.tnorm(b_df).item()
     x, cycles, inner_total, history = _refine(
         lambda x: b_df - matvec_df(x), lambda r: inner_solve(_to(r, _F32)),
@@ -125,15 +149,18 @@ def inner_cg(A, M=None, rtol=1e-4, maxiter=200):
 
 
 def _kkt_residual(K, b_df, planes_df, Bf_df):
-    """residual((u, lam)) = (f - A u - B^T lam, g - B u), all float64, A
-    applied through the float64 planes (kernel B1 on a CUDA device)."""
-    A64 = StencilOperator((K.A.planes if planes_df is None else planes_df).to(_F64))
-    Bf64 = (K.Bf if Bf_df is None else Bf_df).to(_F64)
+    """residual((u, lam)) = (f - A u - B^T lam, g - B u), all float64,
+    through K's own operator type over the float64 planes and rows (kernel
+    B1 on a CUDA device): a DistSaddleOperator adds its halo edge terms and
+    sums B u over its ranks."""
+    planes = K.A.planes if planes_df is None else _shaped_like("planes_df", planes_df, K.A.planes)
+    Bf = K.Bf if Bf_df is None else _shaped_like("Bf_df", Bf_df, K.Bf)
+    K64 = dataclasses.replace(K, A=_with_planes(K.A, planes.to(_F64)), Bf=Bf.to(_F64))
     f, g = b_df
 
     def residual(x):
-        u, lam = x
-        return (f - (A64(u) + constraint_apply_t(Bf64, lam)), g - constraint_apply(Bf64, u))
+        Au, Bu = K64(x)
+        return (f - Au, g - Bu)
 
     return residual
 
@@ -146,7 +173,10 @@ def solve_refined_kkt(K, b_df, inner_solve, rtol=1e-8, max_cycles=12, planes_df=
     (f field, g vector). inner_solve: (r_u, r_lam) float32 -> ((du, dlam),
     iterations), e.g. a Schur-preconditioned MINRES. planes_df / Bf_df:
     the float64 planes and constraint rows of the residual (default: K's
-    float32 arrays widened to float64).
+    float32 arrays widened to float64), shaped as K's. For a
+    DistSaddleOperator f, x's u, planes_df and Bf_df are this rank's
+    patches and g and lam are replicated, equal on every rank; the
+    residual norm counts them once.
     """
     residual = _kkt_residual(K, b_df, planes_df, Bf_df)
     bnorm = krylov.tnorm(b_df).item()
@@ -181,7 +211,8 @@ def solve_refined_kkt_fused(
     inner(r_u, r_lam, inner_operands) when `inner_operands` is given,
     replacing the default correction solve: MINRES on K with M (default
     the diag-Schur PC of K) to inner_rtol, at most inner_maxiter
-    iterations.
+    iterations. A distributed K takes its arguments as
+    `solve_refined_kkt` says.
     """
     if M is None:
         M = precond.schur_pc(K.A, K.Bf, fact_type="diag")

@@ -6,6 +6,7 @@
     python -m saddle_point_petsc_tpu_torch.tools.dist_probe aij [--ranks 4]
     python -m saddle_point_petsc_tpu_torch.tools.dist_probe gamg [--ranks 4]
     python -m saddle_point_petsc_tpu_torch.tools.dist_probe mg [--ranks 4]
+    python -m saddle_point_petsc_tpu_torch.tools.dist_probe refine [--ranks 4]
 
 `overhead` (one card, a world of one on NCCL): the host time of one
 all_reduce of a 0-d tensor, of a halo exchange with no neighbours, and of
@@ -57,12 +58,26 @@ Poisson in f64 on N ranks and on one: each rank's patch on every split
 level, PCSetUp seconds, CG to rtol 1e-8 iterations and ms per iteration,
 and the milliseconds of one V-cycle (20 in a row between barriers).
 
+`refine` (as many cards as ranks): the JAX bench's distributed
+mixed-precision refinement (`bench_refined_kkt_dist`, bench.py:407-583):
+the KKT system assembled in f64 on a 2 x (N/2) mesh, its f32 copy for the
+inner solves and their PC (`kkt_f32`, `refine_inner`), and
+`refine.solve_refined_kkt_fused` to rtol 1e-8 with an inner rtol of 1e-3
+(f64 residuals through the distributed f64 operator). First the
+`minres-mg` inner at 65^2 over NCCL against the same over gloo on the CPU
+(equal cycles and inner iterations), then (`refine-rank`, one process per
+rank) at 1025^2 on N ranks and on one: cycles, inner iterations, Assembly,
+PCSetUp and solve seconds, and the f64 true relative residual, computed
+on rank 0 from the gathered patches with the plain serial matvec. Four
+ranks must reach 1e-8 with cycles within 1 of one rank's.
+
 Every time is on the host clock around synchronized device work; the
 card's name and power limit are printed with them.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import datetime
 import os
 import re
@@ -452,12 +467,145 @@ def mg_runs(ranks):
             _torchrun(n, ["mg-rank"], tmp, env, module="saddle_point_petsc_tpu_torch.tools.dist_probe")
 
 
+# the correction solves of the JAX bench's distributed refinement
+REFINE_INNERS = ("minres-diag", "minres-mg", "fgmres-mg")
+
+
+def kkt_f32(K):
+    """The float32 copy of a float64 KKT operator (serial or distributed):
+    the operator of the refinement's inner solves, beside the float64 one
+    that defines its residual."""
+    return dataclasses.replace(K, A=dataclasses.replace(K.A, planes=K.A.planes.float()), Bf=K.Bf.float())
+
+
+def refine_inner(K32, kind):
+    """The float32 correction solve of `bench_refined_kkt_dist`
+    (bench.py:489-527) on K32, built once for every cycle, as the keyword
+    arguments (M, inner, inner_operands) of `solve_refined_kkt_fused`:
+    `minres-diag` MINRES + Schur(diag, Jacobi); `minres-mg` MINRES +
+    Schur(diag) with the distributed MG (Chebyshev smoother) as its A-block
+    solve; `fgmres-mg` FGMRES (rtol 1e-3, maxiter 60, restart 30) +
+    Schur(full, MG), which f32 breaks from about 1025^2 (ROADMAP C)."""
+    from saddle_point_petsc_tpu_torch.solvers import krylov, multigrid, precond
+
+    A, Bf = K32.A, K32.Bf
+    if kind == "minres-diag":
+        return {"M": precond.schur_pc(A, Bf, fact_type="diag")}
+    if kind == "minres-mg":
+        return {"M": precond.schur_pc(A, Bf, multigrid.mg_pc_dist(A, smoother="chebyshev"), "diag")}
+    if kind == "fgmres-mg":
+        M = precond.schur_pc(A, Bf, inner_solve=multigrid.mg_pc_dist(A, smoother="chebyshev"), fact_type="full")
+
+        def inner(ru, rlam, ops):
+            res = krylov.fgmres(ops[0], (ru, rlam), M=ops[1], rtol=1e-3, maxiter=60, restart=30)
+            return res.x, res.iterations
+
+        return {"inner": inner, "inner_operands": (K32, M)}
+    raise ValueError(f"inner {kind!r}: one of {REFINE_INNERS}")
+
+
+def true_rel_kkt(planes, Bf, rhs, x, active=None):
+    """|rhs - K x| / |rhs| in f64 through the plain serial stencil matvec,
+    on the (ny, nx) active grid of global (gathered, possibly padded)
+    arrays (None: all of it): a check that shares no code with
+    solvers/refine.py or the distributed operators."""
+    from saddle_point_petsc_tpu_torch.ops.stencil import planes_matvec_field
+    from saddle_point_petsc_tpu_torch.solvers import krylov
+    from saddle_point_petsc_tpu_torch.solvers.operators import SaddleOperator
+
+    ny, nx = active or planes.shape[-2:]
+
+    def crop(t):
+        return t[..., :ny, :nx].double().contiguous()
+
+    planes = crop(planes)
+    K = SaddleOperator(lambda u: planes_matvec_field(planes, u), crop(Bf))
+    b = (crop(rhs[0]), rhs[1].double())
+    return (krylov.tnorm(krylov.tsub(b, K((crop(x[0]), x[1].double())))) / krylov.tnorm(b)).item()
+
+
+def refine_rank(side=1025, device="cuda"):
+    """One rank of `refine`, under torchrun: the side^2 trig KKT system in
+    f64 on the mesh decide_process_grid picks, refined to rtol 1e-8 with
+    config 5's inner solve (`minres-mg`, at most 20000 iterations); each
+    step timed between barriers. Rank 0 prints `cycles=C, its=I` and the
+    f64 true relative residual of the gathered solution (the active grid,
+    through the plain serial matvec)."""
+    import torch.distributed as dist
+
+    from saddle_point_petsc_tpu_torch.parallel import dist as pd
+    from saddle_point_petsc_tpu_torch.parallel import mesh as pmesh
+    from saddle_point_petsc_tpu_torch.solvers import refine
+
+    dev, created = pmesh.init_from_env(torch.device(device))
+    cuda = dev.type == "cuda"
+    try:
+        mesh = pmesh.ProcessMesh.create(ny=side, nx=side, device=dev)
+
+        def timed(fn):
+            dist.barrier(device_ids=[dev.index] if cuda else None)
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            if cuda:
+                torch.cuda.synchronize()
+            dist.barrier(device_ids=[dev.index] if cuda else None)
+            return out, time.perf_counter() - t0
+
+        def setup():
+            K32 = kkt_f32(K)
+            return K32, refine_inner(K32, "minres-mg")
+
+        (K, rhs, _), t_asm = timed(lambda: pd.assemble_saddle_dist(pd.DistGrid.create(side - 1, side - 1, mesh),
+                                                                    body_force="trig"))
+        (K32, kw), t_setup = timed(setup)
+        run = refine.solve_refined_kkt_fused(K32, rhs, rtol=1e-8, planes_df=K.A.planes, Bf_df=K.Bf,
+                                             inner_rtol=1e-3, inner_maxiter=20000, **kw)
+        (x, cycles, its, rn, rn0), t_solve = timed(run)
+        planes, Bf, f, u = (pmesh.gather_field(t, mesh) for t in (K.A.planes, K.Bf, rhs[0], x[0]))
+        if mesh.rank == 0:
+            true_rel = true_rel_kkt(planes, Bf, (f, rhs[1]), (u, x[1]), (side, side))
+            where = f"{_card()}, each rank its own card" if cuda else "gloo on the CPU"
+            print(f"{side}^2 refinement, minres-mg inner, on {mesh.size} rank(s), mesh {mesh.shape}: cycles={cycles}, "
+                  f"its={its}, Assembly {t_asm:.3f} s, PCSetUp {t_setup:.3f} s, solve {t_solve:.4f} s, "
+                  f"|r|/|b| {rn / rn0:.3e} (loop), true relative residual {true_rel:.3e} (f64, plain, gathered) "
+                  f"({where})", flush=True)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def refine_runs(ranks):
+    card = _card()
+    pkg = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = {"PYTHONPATH": pkg + os.pathsep + os.environ.get("PYTHONPATH", ""), "OMP_NUM_THREADS": "1"}
+    line = re.compile(r"cycles=(\d+), its=(\d+).*true relative residual (\S+)")
+    with tempfile.TemporaryDirectory() as tmp:
+        module = "saddle_point_petsc_tpu_torch.tools.dist_probe"
+        got = {device: line.findall(_torchrun(ranks, ["refine-rank", "--side", "65", "--device", device], tmp, env,
+                                              module=module))[0][:2]
+               for device in ("cuda", "cpu")}
+        print(f"65^2 refinement (minres-mg) on {ranks} ranks: NCCL cycles, its {got['cuda']}, gloo {got['cpu']} "
+              f"({card})")
+        if got["cuda"] != got["cpu"]:
+            raise SystemExit("NCCL and gloo disagree")
+        out = {n: line.findall(_torchrun(n, ["refine-rank"], tmp, env, module=module))[0] for n in (ranks, 1)}
+        (c4, _, r4), (c1, _, _) = out[ranks], out[1]
+        print(f"1025^2 refinement (minres-mg): {c4} cycles on {ranks} ranks, {c1} on one, true relative residual "
+              f"{r4} on {ranks} ({card})")
+        if abs(int(c4) - int(c1)) > 1 or not float(r4) <= 1e-8:
+            raise SystemExit("the refinement on several ranks misses 1e-8 or the one-rank cycle count")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("mode", choices=("overhead", "cli", "mesh", "aij", "aij-rank", "gamg", "gamg-rank", "mg",
-                                     "mg-rank"))
+                                     "mg-rank", "refine", "refine-rank"))
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--side", type=int, default=1025, help="refine-rank: nodes a side")
+    ap.add_argument("--device", default="cuda", help="refine-rank: cuda (NCCL) or cpu (gloo)")
     args = ap.parse_args(argv)
     if args.mode == "overhead":
         overhead()
@@ -475,6 +623,10 @@ def main(argv=None):
         mg_runs(args.ranks)
     elif args.mode == "mg-rank":
         mg_rank()
+    elif args.mode == "refine":
+        refine_runs(args.ranks)
+    elif args.mode == "refine-rank":
+        refine_rank(args.side, args.device)
     else:
         mesh_runs(args.ranks)
 
