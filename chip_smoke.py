@@ -197,6 +197,19 @@ Phases (each passes or raises; the script exits non-zero on any failure):
     device memory and the f64 true relative residual (at most 1e-8),
     recomputed with the plain serial matvec on the gathered patch; then B1
     against its plain version in both types at its grid.
+25. The bench twin, `python -m saddle_point_petsc_tpu_torch.bench`, in a
+    subprocess at its full sizes, with BENCH_DEADLINE_S what is left of
+    the script's 1200 s: it must exit 0 and print a last line of JSON of
+    at most 1900 bytes with no errors key and no deadline hit, every key
+    group (spmv, kkt_solve, kkt_rtol1e8, kkt_rtol1e8_dist, aij_tpu, gamg,
+    config2/3/4, config3_rtol1e8, scaling, config5, spmm; read from its
+    full dict), `device` and `scaling_backend` on the line itself,
+    vs_baseline at most 1.05 of the bandwidth its own copy
+    measured, refined relative residuals at most 1e-8, and the counts of
+    this run's phases: config4_iterations (phase 20's serial route),
+    gamg_its (phase 22 (a), stream) and the cycles and inner iterations of
+    kkt_rtol1e8_dist (phase 24 (a)) and config5 (phase 24 (b)). The line
+    is printed on a line of its own.
 
 Each kernel's timing runs in the order plain, kernel, library, library,
 kernel, plain (medians of 60 launches each) and prints the kernel's
@@ -1459,7 +1472,8 @@ def _dist_functions(dev, mesh, card):
 
 
 def phase_dist(dev, tmp, card):
-    """Phase 20: the distributed stencil path in a world of one on NCCL."""
+    """Phase 20: the distributed stencil path in a world of one on NCCL.
+    Returns config 4's serial iteration count."""
     tdist.init_process_group("nccl", store=tdist.FileStore(os.path.join(tmp, "nccl_store"), 1), rank=0,
                              world_size=1, device_id=dev, timeout=datetime.timedelta(seconds=300))
     try:
@@ -1528,6 +1542,7 @@ def phase_dist(dev, tmp, card):
         tdist.destroy_process_group()
     if tdist.is_initialized():
         raise AssertionError("the process group outlived phase 20")
+    return out["serial"]["its"]
 
 
 AIJ_GRID = 704  # phase 21: BASELINE config 4's grid, 991,232 rows of the Q1 operator
@@ -1745,13 +1760,12 @@ def _apply_launches(M):
 
 def _gamg_bench(dev, mesh, card):
     """Phase 22 (a): the JAX bench's gamg workload, stream and global setups.
-    Returns the stream run's launch counts."""
+    Returns the stream run's launch counts and iterations."""
     n = GAMG_DIST_GRID
     a = _poisson5(n, np.float32)
     A = dist_csr.dist_aij_from_scipy(a, mesh)
     b = dist_csr.pad_vector(np.ones(a.shape[0], np.float32), A.n_pad, mesh)
     a64 = a.astype(np.float64)
-    stream_counts = None
     for setup in ("stream", "global"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1783,9 +1797,9 @@ def _gamg_bench(dev, mesh, card):
         if counts["B3"] < its or counts["B5"] < its:
             raise AssertionError(f"setup={setup}: B3 {counts['B3']}, B5 {counts['B5']} launches for {its} its")
         if setup == "stream":
-            stream_counts = counts
+            stream = counts, its
         del M
-    return stream_counts
+    return stream
 
 
 def _gamg_cli(card):
@@ -1847,14 +1861,15 @@ def _gamg_apply(dev, mesh, card):
 
 
 def phase_gamg_dist(dev, tmp, card):
-    """Phase 22: the distributed gamg in a world of one on NCCL."""
+    """Phase 22: the distributed gamg in a world of one on NCCL. Returns (a)'s
+    streaming-setup launch counts and iterations."""
     tdist.init_process_group("nccl", store=tdist.FileStore(os.path.join(tmp, "nccl_store_gamg"), 1), rank=0,
                              world_size=1, device_id=dev, timeout=datetime.timedelta(seconds=300))
     try:
         mesh = dist_csr.make_mesh_1d()
         if tdist.get_backend() != "nccl" or mesh.device.type != "cuda":
             raise AssertionError(f"backend {tdist.get_backend()}, mesh on {mesh.device}")
-        counts = _gamg_bench(dev, mesh, card)
+        counts, its = _gamg_bench(dev, mesh, card)
         _gamg_cli(card)
         _gamg_apply(dev, mesh, card)
         # (d) the twin of the JAX package's entry hooks
@@ -1869,7 +1884,7 @@ def phase_gamg_dist(dev, tmp, card):
         tdist.destroy_process_group()
     if tdist.is_initialized():
         raise AssertionError("the process group outlived phase 22")
-    return counts
+    return counts, its
 
 
 MG_DIST_GRID = 1025  # phase 23 (a), (c): the grid of phases 15-16
@@ -2043,12 +2058,12 @@ def _refined_dist(dev, mesh, n, inner, inner_maxiter, card):
     K, rhs, _ = pdist.assemble_saddle_dist(pdist.DistGrid.create(n - 1, n - 1, mesh), body_force="trig")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    K32 = dist_probe.kkt_f32(K)
-    kw = dist_probe.refine_inner(K32, inner)
+    K32 = refine.kkt_f32(K)
+    kw = refine.refine_inner(K32, inner)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    x, cycles, its, rn, rn0 = refine.solve_refined_kkt_fused(
-        K32, rhs, rtol=1e-8, planes_df=K.A.planes, Bf_df=K.Bf, inner_rtol=1e-3, inner_maxiter=inner_maxiter, **kw)()
+    x, cycles, its, rn, rn0 = refine.solve_refined_kkt_fused(K32, rhs, planes_df=K.A.planes, Bf_df=K.Bf,
+                                                             inner_rtol=1e-3, inner_maxiter=inner_maxiter, **kw)()
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     b1 = dict(spmv.dtype_launches)
@@ -2084,7 +2099,7 @@ def phase_refine_dist(dev, tmp, card, config5):
     (`bench_refined_kkt_dist`) in a world of one on NCCL: (a) its
     kkt_rtol1e8_dist setting beside the serial refinement of the same
     system, (b) config 5 beside phase 23 (d)'s direct f64 MINRES. Returns
-    the B1 launches of (a) and (b)."""
+    the B1 launches of (a) and (b), and their (cycles, inner iterations)."""
     tdist.init_process_group("nccl", store=tdist.FileStore(os.path.join(tmp, "nccl_store_refine"), 1), rank=0,
                              world_size=1, device_id=dev, timeout=datetime.timedelta(seconds=300))
     try:
@@ -2096,12 +2111,12 @@ def phase_refine_dist(dev, tmp, card, config5):
         K, rhs, xd, a = _refined_dist(dev, mesh, n, "minres-diag", 6000, card)
         # the serial refinement of the same arrays: a world of one is the serial route
         Ks = SaddleOperator(StencilOperator(K.A.planes), K.Bf)
-        Ks32 = dist_probe.kkt_f32(Ks)
+        Ks32 = refine.kkt_f32(Ks)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        xs, cycles, its, rn, rn0 = refine.solve_refined_kkt_fused(
-            Ks32, rhs, rtol=1e-8, planes_df=Ks.A.planes, Bf_df=Ks.Bf, inner_rtol=1e-3, inner_maxiter=6000,
-            **dist_probe.refine_inner(Ks32, "minres-diag"))()
+        xs, cycles, its, rn, rn0 = refine.solve_refined_kkt_fused(Ks32, rhs, planes_df=Ks.A.planes, Bf_df=Ks.Bf,
+                                                                  inner_rtol=1e-3, inner_maxiter=6000,
+                                                                  **refine.refine_inner(Ks32, "minres-diag"))()
         torch.cuda.synchronize()
         t_serial = time.perf_counter() - t1
         same = all(torch.equal(p, q) for p, q in zip(xd, xs))
@@ -2122,7 +2137,66 @@ def phase_refine_dist(dev, tmp, card, config5):
         tdist.destroy_process_group()
     if tdist.is_initialized():
         raise AssertionError("the process group outlived phase 24")
-    return sum(r["b1"][dtype] for r in (a, b) for dtype in r["b1"])
+    counts = {"kkt_rtol1e8_dist": (a["cycles"], a["its"]), "config5": (b["cycles"], b["its"])}
+    return sum(r["b1"][dtype] for r in (a, b) for dtype in r["b1"]), counts
+
+
+SCRIPT_LIMIT_S = 1200  # the time this script is given, builds included
+# one key of each section the bench must have run, by section
+BENCH_GROUPS = {
+    "spmv": "spmv_pallas_nnz_per_s", "kkt_solve": "kkt_solve_s", "kkt_rtol1e8": "kkt_rtol1e8_s",
+    "kkt_rtol1e8_dist": "kkt_rtol1e8_dist_s", "aij_tpu": "aij_tpu_nnz_per_s", "gamg": "gamg_its",
+    "config2": "config2_rtol1e8_s", "config3": "config3_iterations", "config4": "config4_iterations",
+    "config3_rtol1e8": "config3_rtol1e8_s", "scaling": "scaling_efficiency", "config5": "config5_s",
+    "spmm": "spmm_nnz_per_s",
+}
+
+
+def phase_bench(tmp, card, t_start, counts):
+    """Phase 25: `python -m saddle_point_petsc_tpu_torch.bench` at its full
+    sizes in a subprocess, with BENCH_DEADLINE_S what is left of the
+    script's time. Fails on a non-zero exit, a line over 1900 bytes, an
+    errors key or a deadline hit, a missing key group, a line without
+    `device` or `scaling_backend`, vs_baseline over
+    1.05, a refined relative residual over 1e-8, and a count that differs
+    from this run's phase: `counts` (config4_iterations from phase 20's
+    serial run, gamg_its from phase 22 (a), the kkt_rtol1e8_dist_* and
+    config5_* cycles and inner iterations from phase 24)."""
+    torch.cuda.empty_cache()
+    left = SCRIPT_LIMIT_S - (time.perf_counter() - t_start) - 60
+    full = os.path.join(tmp, "bench_full.json")
+    env = dict(os.environ, BENCH_DEADLINE_S=str(int(left)), BENCH_FULL_PATH=full)
+    env.pop("BENCH_CPU", None)
+    run = subprocess.run([sys.executable, "-m", "saddle_point_petsc_tpu_torch.bench"], capture_output=True, text=True,
+                         env=env, timeout=left + 30)
+    print(run.stderr.strip())
+    line = run.stdout.strip().splitlines()[-1] if run.stdout.strip() else ""
+    print(f"  bench line ({len(line.encode())} bytes, exit {run.returncode}): {line}")
+    if run.returncode != 0 or len(line.encode()) > 1900:
+        raise AssertionError(f"the bench exited {run.returncode} with a line of {len(line.encode())} bytes")
+    compact = json.loads(line)
+    with open(full) as fh:
+        out = json.load(fh)
+    if "errors" in compact or "bench_deadline_hit_s" in compact:
+        raise AssertionError(f"the bench line has errors {compact.get('errors')}, deadline "
+                             f"{compact.get('bench_deadline_hit_s')}")
+    missing = [g for g, k in BENCH_GROUPS.items() if k not in out]
+    missing += [k for k in ("device", "scaling_backend") if k not in compact]
+    if missing:
+        raise AssertionError(f"the bench lacks the key groups or line keys {missing}")
+    if not out["vs_baseline"] <= 1.05:
+        raise AssertionError(f"vs_baseline {out['vs_baseline']} over 1.05 of the copy's roofline")
+    rel = {k: out[k] for k in ("kkt_rtol1e8_rel_rnorm", "kkt_rtol1e8_dist_rel_rnorm", "config5_rel_rnorm",
+                                "config2_rtol1e8_rel_rnorm", "config3_rtol1e8_rel_rnorm")}
+    if not all(v <= 1e-8 for v in rel.values()) or not out["scaling_matvec_max_err"] <= 1e-12:
+        raise AssertionError(f"refined relative residuals {rel}, scaling product error {out['scaling_matvec_max_err']}")
+    differ = {k: (out[k], v) for k, v in counts.items() if out[k] != v}
+    print(f"  bench against this run's phases: {counts}; differing {differ} ({card})")
+    if differ:
+        raise AssertionError(f"bench counts differ from this run's phases (bench, phase): {differ}")
+    print(f"  spmv {out['value']:.4g} nnz/s ({out['spmv_ms']:.4f} ms), vs_baseline {out['vs_baseline']:.4f} of "
+          f"{out['roofline_bytes_per_s'] / 1e12:.4f} TB/s (copy); scaling {out['scaling_efficiency']:.4f} "
+          f"({out['scaling_backend']}); {card}")
 
 
 def main():
@@ -2166,20 +2240,24 @@ def main():
         phase_ilu(dev, tmp, jacobi_1025)
         print(f"phase 19: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        phase_dist(dev, tmp, card)
+        config4_its = phase_dist(dev, tmp, card)
         print(f"phase 20: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         phase_aij_dist(dev, tmp, card)
         print(f"phase 21: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        dist_gamg_counts = phase_gamg_dist(dev, tmp, card)
+        dist_gamg_counts, gamg_its = phase_gamg_dist(dev, tmp, card)
         print(f"phase 22: {time.perf_counter() - t0:.1f} s ({card})")
         t0 = time.perf_counter()
         config5 = phase_mg_dist(dev, tmp, card)
         print(f"phase 23: {time.perf_counter() - t0:.1f} s ({card})")
         t0 = time.perf_counter()
-        refine_launches = phase_refine_dist(dev, tmp, card, config5)
+        refine_launches, refined = phase_refine_dist(dev, tmp, card, config5)
         print(f"phase 24: {time.perf_counter() - t0:.1f} s ({card})")
+        t0 = time.perf_counter()
+        phase_bench(tmp, card, t_start, {"config4_iterations": config4_its, "gamg_its": gamg_its, **{
+            f"{key}_{name}": v for key, pair in refined.items() for name, v in zip(("cycles", "inner_its"), pair)}})
+        print(f"phase 25: {time.perf_counter() - t0:.1f} s ({card})")
         # phase 4's saddle route, phase 23's config 5 and phase 24's refinements
         launches += config5["B1"] + refine_launches
 

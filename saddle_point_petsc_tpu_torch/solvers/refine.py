@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator
-from saddle_point_petsc_tpu_torch.solvers import krylov, precond
+from saddle_point_petsc_tpu_torch.parallel.dist import DistStencilOperator
+from saddle_point_petsc_tpu_torch.solvers import krylov, multigrid, precond
 from saddle_point_petsc_tpu_torch.utils.device import resolve_device
 
 _F64, _F32 = torch.float64, torch.float32
@@ -230,3 +231,51 @@ def solve_refined_kkt_fused(
         return res.x, res.cycles, res.inner_iterations, res.rnorm, res.rnorm0
 
     return run
+
+
+REFINE_INNERS = ("minres", "minres-diag", "minres-mg", "fgmres-mg")
+
+
+def kkt_f32(K):
+    """The float32 copy of a float64 KKT operator (serial or distributed):
+    the operator of the refinement's inner solves, beside the float64 one
+    that defines its residual."""
+    return dataclasses.replace(K, A=dataclasses.replace(K.A, planes=K.A.planes.float()), Bf=K.Bf.float())
+
+
+def refine_inner(K32, kind):
+    """The float32 correction solve of the JAX bench's refinements on K32,
+    built once for every cycle, as keyword arguments (M, inner,
+    inner_operands) of `solve_refined_kkt_fused`:
+
+    - `minres` (bench_refined_kkt, bench.py:192-204): MINRES + Schur(diag)
+      with a Chebyshev(3) A-block, lmin = lmax / 16, lmax = 1.1 x
+      estimate_lmax of Jacobi-preconditioned A;
+    - `minres-diag` (bench_refined_kkt_dist): MINRES + Schur(diag, Jacobi);
+    - `minres-mg` (config 5): MINRES + Schur(diag) with MG (Chebyshev
+      smoother) as its A-block solve;
+    - `fgmres-mg` (both): FGMRES (rtol 1e-3, maxiter 60, restart 30) +
+      Schur(full, MG), which f32 breaks from about 1025^2 (ROADMAP C).
+
+    The MG is the distributed one on a DistStencilOperator, else the
+    serial one."""
+    A, Bf = K32.A, K32.Bf
+    mg = multigrid.mg_pc_dist if isinstance(A, DistStencilOperator) else multigrid.mg_pc
+    if kind == "minres":
+        Mj = precond.jacobi(A)
+        lmax = 1.1 * precond.estimate_lmax(A, Mj, template=torch.zeros_like(A.diagonal()))
+        cheb = precond.chebyshev_pc(A, inner=Mj, lmin=lmax / 16.0, lmax=lmax, iters=3)
+        return {"M": precond.schur_pc(A, Bf, cheb, fact_type="diag")}
+    if kind == "minres-diag":
+        return {"M": precond.schur_pc(A, Bf, fact_type="diag")}
+    if kind == "minres-mg":
+        return {"M": precond.schur_pc(A, Bf, mg(A, smoother="chebyshev"), "diag")}
+    if kind == "fgmres-mg":
+        M = precond.schur_pc(A, Bf, inner_solve=mg(A, smoother="chebyshev"), fact_type="full")
+
+        def inner(ru, rlam, ops):
+            res = krylov.fgmres(ops[0], (ru, rlam), M=ops[1], rtol=1e-3, maxiter=60, restart=30)
+            return res.x, res.iterations
+
+        return {"inner": inner, "inner_operands": (K32, M)}
+    raise ValueError(f"inner {kind!r}: one of {REFINE_INNERS}")

@@ -61,9 +61,10 @@ and the milliseconds of one V-cycle (20 in a row between barriers).
 `refine` (as many cards as ranks): the JAX bench's distributed
 mixed-precision refinement (`bench_refined_kkt_dist`, bench.py:407-583):
 the KKT system assembled in f64 on a 2 x (N/2) mesh, its f32 copy for the
-inner solves and their PC (`kkt_f32`, `refine_inner`), and
-`refine.solve_refined_kkt_fused` to rtol 1e-8 with an inner rtol of 1e-3
-(f64 residuals through the distributed f64 operator). First the
+inner solves and their PC, and `refine.solve_refined_kkt_fused` to rtol
+1e-8 with an inner rtol of 1e-3 (f64 residuals through the distributed
+f64 operator), with the inner solves of `solvers/refine.py` (`kkt_f32`,
+`refine_inner`) that the port's bench runs. First the
 `minres-mg` inner at 65^2 over NCCL against the same over gloo on the CPU
 (equal cycles and inner iterations), then (`refine-rank`, one process per
 rank) at 1025^2 on N ranks and on one: cycles, inner iterations, Assembly,
@@ -77,7 +78,6 @@ card's name and power limit are printed with them.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import datetime
 import os
 import re
@@ -89,6 +89,8 @@ import time
 import numpy as np
 import torch
 
+from saddle_point_petsc_tpu_torch.utils.device import card_line
+
 # BASELINE config 4's A-block PC, and the one a 1 x 1 mesh reduces to
 CONFIG4_PC = ["-fieldsplit_inner_pc_type", "bjacobi", "-sub_pc_type", "chebyshev", "-pc_bjacobi_local_its", "4"]
 SERIAL4_PC = ["-fieldsplit_inner_pc_type", "chebyshev", "-pc_chebyshev_esteig", "-pc_chebyshev_its", "4"]
@@ -97,8 +99,7 @@ CONFIG4 = CONFIG4_SYSTEM + CONFIG4_PC
 
 
 def _card():
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    return card_line(torch.device("cuda", 0))
 
 
 def _host_us(fn, n=500):
@@ -467,43 +468,6 @@ def mg_runs(ranks):
             _torchrun(n, ["mg-rank"], tmp, env, module="saddle_point_petsc_tpu_torch.tools.dist_probe")
 
 
-# the correction solves of the JAX bench's distributed refinement
-REFINE_INNERS = ("minres-diag", "minres-mg", "fgmres-mg")
-
-
-def kkt_f32(K):
-    """The float32 copy of a float64 KKT operator (serial or distributed):
-    the operator of the refinement's inner solves, beside the float64 one
-    that defines its residual."""
-    return dataclasses.replace(K, A=dataclasses.replace(K.A, planes=K.A.planes.float()), Bf=K.Bf.float())
-
-
-def refine_inner(K32, kind):
-    """The float32 correction solve of `bench_refined_kkt_dist`
-    (bench.py:489-527) on K32, built once for every cycle, as the keyword
-    arguments (M, inner, inner_operands) of `solve_refined_kkt_fused`:
-    `minres-diag` MINRES + Schur(diag, Jacobi); `minres-mg` MINRES +
-    Schur(diag) with the distributed MG (Chebyshev smoother) as its A-block
-    solve; `fgmres-mg` FGMRES (rtol 1e-3, maxiter 60, restart 30) +
-    Schur(full, MG), which f32 breaks from about 1025^2 (ROADMAP C)."""
-    from saddle_point_petsc_tpu_torch.solvers import krylov, multigrid, precond
-
-    A, Bf = K32.A, K32.Bf
-    if kind == "minres-diag":
-        return {"M": precond.schur_pc(A, Bf, fact_type="diag")}
-    if kind == "minres-mg":
-        return {"M": precond.schur_pc(A, Bf, multigrid.mg_pc_dist(A, smoother="chebyshev"), "diag")}
-    if kind == "fgmres-mg":
-        M = precond.schur_pc(A, Bf, inner_solve=multigrid.mg_pc_dist(A, smoother="chebyshev"), fact_type="full")
-
-        def inner(ru, rlam, ops):
-            res = krylov.fgmres(ops[0], (ru, rlam), M=ops[1], rtol=1e-3, maxiter=60, restart=30)
-            return res.x, res.iterations
-
-        return {"inner": inner, "inner_operands": (K32, M)}
-    raise ValueError(f"inner {kind!r}: one of {REFINE_INNERS}")
-
-
 def true_rel_kkt(planes, Bf, rhs, x, active=None):
     """|rhs - K x| / |rhs| in f64 through the plain serial stencil matvec,
     on the (ny, nx) active grid of global (gathered, possibly padded)
@@ -554,15 +518,14 @@ def refine_rank(side=1025, device="cuda"):
             return out, time.perf_counter() - t0
 
         def setup():
-            K32 = kkt_f32(K)
-            return K32, refine_inner(K32, "minres-mg")
+            K32 = refine.kkt_f32(K)
+            return K32, refine.refine_inner(K32, "minres-mg")
 
         (K, rhs, _), t_asm = timed(lambda: pd.assemble_saddle_dist(pd.DistGrid.create(side - 1, side - 1, mesh),
-                                                                    body_force="trig"))
+                                                                   body_force="trig"))
         (K32, kw), t_setup = timed(setup)
-        run = refine.solve_refined_kkt_fused(K32, rhs, rtol=1e-8, planes_df=K.A.planes, Bf_df=K.Bf,
-                                             inner_rtol=1e-3, inner_maxiter=20000, **kw)
-        (x, cycles, its, rn, rn0), t_solve = timed(run)
+        (x, cycles, its, rn, rn0), t_solve = timed(refine.solve_refined_kkt_fused(
+            K32, rhs, planes_df=K.A.planes, Bf_df=K.Bf, inner_rtol=1e-3, inner_maxiter=20000, **kw))
         planes, Bf, f, u = (pmesh.gather_field(t, mesh) for t in (K.A.planes, K.Bf, rhs[0], x[0]))
         if mesh.rank == 0:
             true_rel = true_rel_kkt(planes, Bf, (f, rhs[1]), (u, x[1]), (side, side))

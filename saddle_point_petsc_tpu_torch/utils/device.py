@@ -7,6 +7,8 @@ caller passes `device="cpu"` (the CPU tests do).
 """
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -19,3 +21,13 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev}: no CUDA device is available (pass device='cpu' for the CPU)")
     return dev
+
+
+def card_line(dev):
+    """The card's name and power limit as nvidia-smi prints them; on the CPU,
+    its thread count."""
+    if dev.type != "cuda":
+        return f"cpu, {torch.get_num_threads()} threads"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", f"--id={dev.index}"],
+                         capture_output=True, text=True, check=True).stdout
+    return out.strip().splitlines()[0]

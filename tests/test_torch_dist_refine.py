@@ -74,7 +74,7 @@ def _worker(inp_path, out_path):
 
     from saddle_point_petsc_tpu_torch.parallel import dist as pd
     from saddle_point_petsc_tpu_torch.solvers import krylov, precond, refine
-    from saddle_point_petsc_tpu_torch.tools.dist_probe import kkt_f32, refine_inner
+    from saddle_point_petsc_tpu_torch.solvers.refine import kkt_f32, refine_inner
 
     torch.set_num_threads(1)
     with open(inp_path, "rb") as fh:
@@ -390,7 +390,7 @@ def test_world_of_one_is_the_serial_refinement(world_of_one, case):
     from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator
     from saddle_point_petsc_tpu_torch.parallel import dist as pd
     from saddle_point_petsc_tpu_torch.solvers import refine
-    from saddle_point_petsc_tpu_torch.tools.dist_probe import kkt_f32
+    from saddle_point_petsc_tpu_torch.solvers.refine import kkt_f32
 
     torch.set_num_threads(1)
     grid = pd.DistGrid.create(NEX_POISSON, NEX_POISSON, world_of_one)
