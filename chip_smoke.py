@@ -257,7 +257,7 @@ from saddle_point_petsc_tpu_torch.solvers import amg, ilu_stencil, krylov, multi
 from saddle_point_petsc_tpu_torch.solvers.ksp import KSP
 from saddle_point_petsc_tpu_torch.tools import dist_probe
 from saddle_point_petsc_tpu_torch.solvers.operators import SaddleOperator
-from saddle_point_petsc_tpu_torch.utils import checkpoint, native
+from saddle_point_petsc_tpu_torch.utils import checkpoint, monitor, native
 from saddle_point_petsc_tpu_torch.utils.options import Options
 
 # (nx, ny) nodes: ragged small grids up to 1025^2, the main path's 256^2 and 257^2 among them
@@ -270,8 +270,10 @@ N_TIMED = 1025  # node grid side at which the kernels are timed (phases 3, 6, 11
 # of max|y|. B3, B4, B5 and B6 round each product and sum as the plain
 # versions do and are held to the same bounds (expected: equal bits).
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
-# kernel modules and their launch counters, by kernel name
-COUNTERS = {"B1": spmv, "B2": spmm, "B3": dia, "B4": bdia, "B5": ell, "B6": dia_spmm}
+# the kernels whose launches the program counts in monitor.counters
+# ("<kernel>.launches"), and B1's counters by entry point
+KERNELS = ("B1", "B2", "B3", "B4", "B5", "B6")
+B1_ENTRIES = {"stencil_spmv": "B1.launches.local", "stencil_spmv_padded": "B1.launches.padded"}
 BENCH_R04_KKT_ITERATIONS = 452  # BENCH_r04.json kkt_iterations (256^2, f32, rtol 1e-5)
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # HBM3 bandwidth, and the arithmetic rate outside the tensor cores of the
@@ -414,12 +416,25 @@ def phase_kernel(dev, card):
 
 
 def _reset_counts():
-    for mod in COUNTERS.values():
-        mod.reset_launches()
+    monitor.reset_counters()
+
+
+def _launches(kernel):
+    return monitor.counters.get(f"{kernel}.launches", 0)
 
 
 def _counts():
-    return {name: mod.launches for name, mod in COUNTERS.items()}
+    return {name: _launches(name) for name in KERNELS}
+
+
+def _entry_launches():
+    """B1's launches since the last reset, by entry point."""
+    return {entry: monitor.counters.get(key, 0) for entry, key in B1_ENTRIES.items()}
+
+
+def _dtype_launches():
+    """B1's launches since the last reset, by type."""
+    return {t: monitor.counters.get(f"B1.launches.{str(t)[6:]}", 0) for t in (torch.float32, torch.float64)}
 
 
 def _cli(argv, kernels=("B1",)):
@@ -740,12 +755,12 @@ def phase_gamg(dev):
     dx = (krylov.tnorm(res.x - res_p.x) / krylov.tnorm(res_p.x)).item()
     print(
         f"same hierarchy, plain DIA and ELL matvecs: {res_p.iterations} its, {t_plain:.4f} s, "
-        f"B3 launches {dia.launches}, B5 launches {ell.launches}; "
+        f"B3 launches {_launches("B3")}, B5 launches {_launches("B5")}; "
         f"|x_kernel - x_plain|/|x_plain| = {dx:.3e}"
     )
-    if dia.launches or ell.launches or res_p.reason_name() != "CONVERGED_RTOL":
+    if _launches("B3") or _launches("B5") or res_p.reason_name() != "CONVERGED_RTOL":
         raise AssertionError(
-            f"plain solve: {res_p.reason_name()}, {dia.launches} B3, {ell.launches} B5 launches")
+            f"plain solve: {res_p.reason_name()}, {_launches("B3")} B3, {_launches("B5")} B5 launches")
     if abs(res_p.iterations - res.iterations) > 1 or not dx <= 1e-6:
         raise AssertionError(f"plain solve {res_p.iterations} its, dx {dx}")
     return counts, err, run
@@ -1024,9 +1039,9 @@ def phase_mat_solve_stencil(dev):
     ksp, res, _, t, counts = _mat_solve(prob.A, B, ["-pc_type", "jacobi", "-ksp_rtol", "1e-8"])
     launches += counts["B2"]
     cols = _column_its(res, 1e-8)
-    b1 = spmv.launches
+    b1 = _launches("B1")
     singles = [krylov.cg(prob.A, B[j], M=ksp.M, rtol=1e-8, maxiter=10000) for j in range(k)]
-    if spmv.launches - b1 < sum(r.iterations for r in singles):
+    if _launches("B1") - b1 < sum(r.iterations for r in singles):
         raise AssertionError("the single-right-hand-side solves did not run through B1")
     dxs = [(krylov.tnorm(res.x[j] - r.x) / krylov.tnorm(r.x)).item() for j, r in enumerate(singles)]
     print(f"{n}^2 f64 k={k} CG+Jacobi: batched per-column iterations {cols}, single-RHS "
@@ -1104,7 +1119,7 @@ def phase_mg(dev):
     grids = [lvl.A.grid_shape[0] for lvl in M.levels]
     n_c = M.coarse_inv.shape[0]
     print(f"{n}^2 f32 mg_pc(chebyshev): setup {t_setup:.3f} s, {len(M.levels)} levels {grids}, "
-          f"coarse {n_c} dofs, B1 launches in setup {spmv.launches}")
+          f"coarse {n_c} dofs, B1 launches in setup {_launches("B1")}")
     if len(M.levels) != 8 or n_c != 50:
         raise AssertionError(f"expected 8 levels down to 5x5 nodes, got {grids} and {n_c} coarse dofs")
 
@@ -1136,7 +1151,7 @@ def phase_mg(dev):
     _reset_counts()
     z = M(r)
     torch.cuda.synchronize()
-    per_cycle = spmv.launches
+    per_cycle = _launches("B1")
     err = _compare("MG V-cycle on the card against the CPU", z.cpu(), M_cpu(r.cpu()), torch.float32)
     reps = 20
     t0 = time.perf_counter()
@@ -1229,7 +1244,7 @@ def phase_refine(dev, minres_f64):
             x, cycles, inner_its, rn, rn0 = run()
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            b1 = spmv.launches
+            b1 = _launches("B1")
             true_rel = dist_probe.true_rel_kkt(planes64, Bf64, prob.rhs, x)
             line = (f"{n}^2 refinement, f64 residual, f32 FGMRES + Schur({fact}, MG chebyshev) inner: {cycles} "
                     f"cycles, {inner_its} inner its, setup {t1 - t0:.3f} s, solve {t2 - t1:.4f} s, B1 launches "
@@ -1258,7 +1273,7 @@ def phase_refine(dev, minres_f64):
         true_rel = dist_probe.true_rel_kkt(planes64, Bf64, prob.rhs, res.x)
         print(f"{n}^2 direct f64 FGMRES + Schur(upper, MG chebyshev): {res.iterations} its, {res.reason_name()}, "
               f"setup {t1 - t0:.3f} s, solve {t2 - t1:.4f} s ({(t2 - t1) / max(res.iterations, 1) * 1e3:.3f} ms/it), "
-              f"B1 launches {spmv.launches}, true relative residual {true_rel:.3e}")
+              f"B1 launches {_launches("B1")}, true relative residual {true_rel:.3e}")
         if not true_rel <= 1e-7:
             raise AssertionError(f"direct f64 FGMRES-MG at {n}^2: true residual {true_rel}")
         del prob, planes64, Bf64, M, res
@@ -1310,8 +1325,8 @@ def _ilu_apply_check(label, M, M_cpu, r, dtype, launches):
     torch.cuda.synchronize()
     if not z.is_cuda:
         raise AssertionError(f"{label}: the apply left the card")
-    if spmv.launches != launches:
-        raise AssertionError(f"{label}: {spmv.launches} B1 launches per apply, expected {launches}")
+    if _launches("B1") != launches:
+        raise AssertionError(f"{label}: {_launches("B1")} B1 launches per apply, expected {launches}")
     err = _compare(f"{label} apply on the card against the CPU", z.cpu(), M_cpu(r.cpu()), dtype)
     times = []
     for _ in range(5):
@@ -1416,7 +1431,7 @@ def phase_ilu(dev, tmp, jacobi_1025):
     print("$ python -m saddle_point_petsc_tpu_torch.cli " + " ".join(argv), flush=True)
     _reset_counts()
     run = cli.run(argv)
-    b1 = spmv.launches
+    b1 = _launches("B1")
     res, prob = run.result, run.problem
     t_setup, t_solve, ms = _phases(run)
     planes64 = prob.A.planes.double()
@@ -1461,8 +1476,8 @@ def _dist_functions(dev, mesh, card):
                              ("padded", "stencil_spmv_padded", lambda: A.matmat_field(x[None])[0])):
         _reset_counts()
         y = op()
-        if spmv.launches != 1 or spmv.entry_launches[entry] != 1:
-            raise AssertionError(f"distributed matvec ({label} form): launches {spmv.entry_launches}")
+        if _launches("B1") != 1 or _entry_launches()[entry] != 1:
+            raise AssertionError(f"distributed matvec ({label} form): launches {_entry_launches()}")
         _compare(f"distributed matvec, {label} form, against the serial B1", y, ref, f32)
         forms[entry] = _median_ms(op)
     t_serial = _median_ms(lambda: serial.A(x))
@@ -1498,7 +1513,7 @@ def phase_dist(dev, tmp, card):
         # each route keeping its faster run
         for label in ("dist", "serial", "serial", "dist"):
             run, counts = _cli(argvs[label])
-            entries = dict(spmv.entry_launches)
+            entries = _entry_launches()
             res, prob = run.result, run.problem
             its = res.iterations
             t_asm, t_setup, t_solve = (run.log.phases[p].total_s for p in ("Assembly", "PCSetUp", "KSPSolve"))
@@ -1961,7 +1976,7 @@ def _dist_mg_poisson(dev, card):
     _reset_counts()
     zd = Md(r)
     torch.cuda.synchronize()
-    launches, entries = spmv.launches, dict(spmv.entry_launches)
+    launches, entries = _launches("B1"), _entry_launches()
     _compare("distributed V-cycle against the serial V-cycle", zd, Ms(r), torch.float64)
     ms_d, ms_s = _vcycle_ms(Md, r), _vcycle_ms(Ms, r)
     print(f"  {n}^2 f64 V-cycle (sor): {launches} B1 launches (local entry {entries['stencil_spmv']}, padded entry "
@@ -2066,7 +2081,7 @@ def _refined_dist(dev, mesh, n, inner, inner_maxiter, card):
                                                              inner_rtol=1e-3, inner_maxiter=inner_maxiter, **kw)()
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    b1 = dict(spmv.dtype_launches)
+    b1 = _dtype_launches()
     peak = torch.cuda.max_memory_allocated(dev)
     # independent of refine.py: the plain serial f64 matvec on the (here
     # trivially) gathered patch

@@ -56,10 +56,13 @@ Flags follow the JAX CLI and PETSc:
   -A_mat_view -f_vec_view -solution_view     object viewers
   -vtk <path>                     VTK output file [test.vtk]
   -no_vtk                         skip VTK output
-  -log_view                       phase timing report
+  -log_view                       phase timing report, with each phase's
+                                  kernel launches, messages and all_reduces
   -profile <dir>                  torch.profiler trace of the KSPSolve
                                   phase (CPU activity, and CUDA activity
-                                  on the card) as a Chrome trace in <dir>
+                                  on the card) as a Chrome trace in <dir>,
+                                  with the program's spans (MatMult,
+                                  PCApply, MGSmooth L0, ...)
   -options_left                   warn about unused options
 
 -mat_stencil_backend,
@@ -290,10 +293,6 @@ def _run(opts, device, dtype, problem_type, mesh) -> CliRun:
         monitor.synchronize(res.x)
 
     its = res.iterations
-    # credit SpMV traffic to the solve phase for the nnz/s report
-    st = log.phases["KSPSolve"]
-    st.nnz_processed += float(prob.A.nnz) * max(its, 1)
-    st.flops += 2.0 * float(prob.A.nnz) * max(its, 1)
     print(
         f"{problem_type}: grid {mx}x{my} nodes, ksp={ksp.ksp_type} "
         f"pc={ksp.pc_type}, its={its}, reason={res.reason_name()}, "

@@ -21,12 +21,17 @@ Every contraction here is a small batched matrix product. A float32
 product on a CUDA device runs in full float32 unless
 `torch.backends.cuda.matmul.allow_tf32` is set; the CLI clears it, since
 these products cancel O(1) coordinates down to O(h) entries.
+
+Spans (utils/monitor.py): `element_stiffness` runs under
+`FEElementMatrices`, `element_rhs` under `FEElementRHS`.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from saddle_point_petsc_tpu_torch.utils.monitor import span
 
 DIM = 2
 NODES_PER_ELEMENT = 4
@@ -106,29 +111,30 @@ def element_stiffness(el_coords, coeff=None):
     strain-displacement matrix B. Batched over the leading dims of
     el_coords (..., 4, 2); returns (..., 8, 8) on el_coords' device.
     """
-    dtype, device = el_coords.dtype, el_coords.device
-    xi, w = gauss_quadrature_q1(dtype, device)
-    if coeff is None:
-        coeff = torch.ones((GAUSS_POINTS,), dtype=dtype, device=device)
-    gni = grad_shape_q1(xi)  # (gp, 2, 4)
-    gnx, det = grad_shape_physical(gni, el_coords[..., None, :, :])
-    # gnx: (..., gp, 2, 4 nodes); det: (..., gp)
-    z = torch.zeros_like(gnx[..., 0, :])
-    dx, dy = gnx[..., 0, :], gnx[..., 1, :]
+    with span("FEElementMatrices"):
+        dtype, device = el_coords.dtype, el_coords.device
+        xi, w = gauss_quadrature_q1(dtype, device)
+        if coeff is None:
+            coeff = torch.ones((GAUSS_POINTS,), dtype=dtype, device=device)
+        gni = grad_shape_q1(xi)  # (gp, 2, 4)
+        gnx, det = grad_shape_physical(gni, el_coords[..., None, :, :])
+        # gnx: (..., gp, 2, 4 nodes); det: (..., gp)
+        z = torch.zeros_like(gnx[..., 0, :])
+        dx, dy = gnx[..., 0, :], gnx[..., 1, :]
 
-    def interleave(a, b):
-        # (..., 4), (..., 4) -> (..., 8) as [a0, b0, a1, b1, ...]
-        return torch.stack([a, b], dim=-1).reshape(*a.shape[:-1], 8)
+        def interleave(a, b):
+            # (..., 4), (..., 4) -> (..., 8) as [a0, b0, a1, b1, ...]
+            return torch.stack([a, b], dim=-1).reshape(*a.shape[:-1], 8)
 
-    B = torch.stack(
-        [interleave(dx, z), interleave(z, dy), interleave(dy, dx)], dim=-2
-    )  # (..., gp, 3, 8)
-    fac = w * det * coeff  # (..., gp)
-    tilde_d = fac[..., None] * torch.tensor([2.0, 2.0, 1.0], dtype=dtype, device=device)
-    # sum over (gauss point, strain row) as one (8 x 12) @ (12 x 8) product
-    lead = B.shape[:-3]
-    Bd = (B * tilde_d[..., None]).reshape(*lead, GAUSS_POINTS * 3, 8)
-    return Bd.transpose(-1, -2) @ B.reshape(*lead, GAUSS_POINTS * 3, 8)
+        B = torch.stack(
+            [interleave(dx, z), interleave(z, dy), interleave(dy, dx)], dim=-2
+        )  # (..., gp, 3, 8)
+        fac = w * det * coeff  # (..., gp)
+        tilde_d = fac[..., None] * torch.tensor([2.0, 2.0, 1.0], dtype=dtype, device=device)
+        # sum over (gauss point, strain row) as one (8 x 12) @ (12 x 8) product
+        lead = B.shape[:-3]
+        Bd = (B * tilde_d[..., None]).reshape(*lead, GAUSS_POINTS * 3, 8)
+        return Bd.transpose(-1, -2) @ B.reshape(*lead, GAUSS_POINTS * 3, 8)
 
 
 def element_rhs(el_coords, body_force):
@@ -137,16 +143,17 @@ def element_rhs(el_coords, body_force):
     `body_force(x)` maps physical coords (..., 2) -> (..., 2); Gauss points
     are mapped to physical space through the Q1 isoparametric map.
     """
-    dtype, device = el_coords.dtype, el_coords.device
-    xi, w = gauss_quadrature_q1(dtype, device)
-    ni = shape_q1(xi)  # (gp, 4)
-    gni = grad_shape_q1(xi)
-    _, det = grad_shape_physical(gni, el_coords[..., None, :, :])  # (..., gp)
-    xp = ni @ el_coords  # physical gauss coords (..., gp, 2)
-    fp = body_force(xp)  # (..., gp, 2)
-    fac = w * det  # (..., gp)
-    fe = ni.transpose(0, 1) @ (fac[..., None] * fp)  # (..., 4, 2)
-    return fe.reshape(*fe.shape[:-2], 8)
+    with span("FEElementRHS"):
+        dtype, device = el_coords.dtype, el_coords.device
+        xi, w = gauss_quadrature_q1(dtype, device)
+        ni = shape_q1(xi)  # (gp, 4)
+        gni = grad_shape_q1(xi)
+        _, det = grad_shape_physical(gni, el_coords[..., None, :, :])  # (..., gp)
+        xp = ni @ el_coords  # physical gauss coords (..., gp, 2)
+        fp = body_force(xp)  # (..., gp, 2)
+        fac = w * det  # (..., gp)
+        fe = ni.transpose(0, 1) @ (fac[..., None] * fp)  # (..., 4, 2)
+        return fe.reshape(*fe.shape[:-2], 8)
 
 
 def default_body_force(x):

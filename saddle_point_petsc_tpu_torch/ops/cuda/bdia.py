@@ -10,23 +10,19 @@ y[c, i] = sum over active (k, c, d) of data[k, c, d, i] * xb[d, i + offsets[k]],
 with xb taken as 0 outside [0, mb), each y[c] summed in `active` order.
 On CPU tensors it runs the plain PyTorch version `bdia_spmv_plain`; on CUDA
 tensors it launches the kernel of csrc/bdia_spmv.cu, built at first use by
-`_build`, or raises. `launches` counts the kernel's launches;
-`reset_launches()` zeroes it.
+`_build`, or raises. Each launch adds 1 to
+`B4.launches` in `utils.monitor.counters`.
 """
 from __future__ import annotations
 
 import torch
 
-launches = 0  # kernel B4 launches since the last reset_launches()
+from saddle_point_petsc_tpu_torch.utils import monitor
+
 
 _DTYPES = (torch.float32, torch.float64)
 _lib = None
 _tables = {}  # (offsets, active, b, device) -> int32 triple table on that device
-
-
-def reset_launches():
-    global launches
-    launches = 0
 
 
 def bdia_spmv_plain(data, xb, offsets, active):
@@ -123,7 +119,6 @@ def _table_on(offsets, active, b, device):
 def _launch(data, xb, offsets, active):
     from saddle_point_petsc_tpu_torch.ops.cuda import _build
 
-    global launches
     lib = _library()
     b, mb = xb.shape
     table = _table_on(offsets, active, b, xb.device)
@@ -134,7 +129,7 @@ def _launch(data, xb, offsets, active):
         rc = fn(data.data_ptr(), xb.data_ptr(), y.data_ptr(), table.data_ptr(),
                 b, len(active), mb, stream)
     _build.check(lib, "bdia_spmv", rc)
-    launches += 1
+    monitor.count("B4.launches")
     return y
 
 

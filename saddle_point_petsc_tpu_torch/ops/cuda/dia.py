@@ -10,24 +10,20 @@ bands data (ndiag, n) and x (n,), with x taken as 0 outside [0, n), and
 both launch the one kernel of csrc/dia_spmv.cu (TPU kernels in
 saddle_point_petsc_tpu/ops/pallas/spmv.py). On CPU tensors they run the
 plain PyTorch version `dia_spmv_plain`; on CUDA tensors they launch the
-kernel, built at first use by `_build`, or raise. `launches` counts the
-kernel's launches through either entry; `reset_launches()` zeroes it.
+kernel, built at first use by `_build`, or raise. Each launch, through
+either entry, adds 1 to `B3.launches` in `utils.monitor.counters`.
 """
 from __future__ import annotations
 
 import torch
 
-launches = 0  # kernel B3/B3' launches since the last reset_launches()
+from saddle_point_petsc_tpu_torch.utils import monitor
+
 
 _DTYPES = (torch.float32, torch.float64)
 _INT32 = (-(2**31), 2**31 - 1)
 _lib = None
 _tables = {}  # (offsets, device) -> int32 offsets on that device
-
-
-def reset_launches():
-    global launches
-    launches = 0
 
 
 def dia_spmv_plain(data, x, offsets):
@@ -99,7 +95,6 @@ def _offsets_on(offsets, device):
 def _launch(data, x, offsets):
     from saddle_point_petsc_tpu_torch.ops.cuda import _build
 
-    global launches
     lib = _library()
     offs = _offsets_on(tuple(offsets), x.device)
     y = torch.empty_like(x)
@@ -109,7 +104,7 @@ def _launch(data, x, offsets):
         rc = fn(data.data_ptr(), x.data_ptr(), y.data_ptr(), offs.data_ptr(),
                 len(offsets), x.shape[0], stream)
     _build.check(lib, "dia_spmv", rc)
-    launches += 1
+    monitor.count("B3.launches")
     return y
 
 

@@ -18,8 +18,8 @@ form at most MAX_RUNS runs of consecutive offsets (`plan_runs`; the plan
 of an offsets tuple is built once and cached), the 16-byte row path for X
 and Y that are row-major with rows of whole, aligned 8-column chunks, the
 strided path for everything else (in f64 the blocked path measured no
-faster than the strided one on the (k, n) batch). `launches` counts the kernel launches;
-`reset_launches()` zeroes it.
+faster than the strided one on the (k, n) batch). Each launch adds 1 to
+`B6.launches` in `utils.monitor.counters`.
 """
 from __future__ import annotations
 
@@ -28,8 +28,8 @@ import ctypes
 import torch
 
 from saddle_point_petsc_tpu_torch.ops.cuda.dia import _INT32, _offsets_on
+from saddle_point_petsc_tpu_torch.utils import monitor
 
-launches = 0  # kernel B6 launches since the last reset_launches()
 
 # the blocked path's limits (csrc/dia_spmm.cu, checked against the library's
 # dia_spmm_limits when it loads): the most bands in a run, the most runs in
@@ -40,11 +40,6 @@ PATHS = ("strided", "rows", "blocked")  # the kernel's path numbers 0, 1, 2
 _DTYPES = (torch.float32, torch.float64)
 _lib = None
 _plans = {}  # (offsets, n) -> _Plan, or None where the plan is longer than MAX_RUNS
-
-
-def reset_launches():
-    global launches
-    launches = 0
 
 
 def dia_spmm_plain(data, X, offsets):
@@ -194,7 +189,6 @@ def _launch(data, X, offsets, path=None, lib=None):
     (None: the library built from csrc/dia_spmm.cu); returns Y."""
     from saddle_point_petsc_tpu_torch.ops.cuda import _build
 
-    global launches
     lib = lib or _library()
     n, k = X.shape
     plan = _plan(offsets, n)
@@ -211,7 +205,7 @@ def _launch(data, X, offsets, path=None, lib=None):
                 ctypes.byref(plan) if plan is not None else None, n, k,
                 *X.stride(), *Y.stride(), stream)
     _build.check(lib, "dia_spmm", rc)
-    launches += 1
+    monitor.count("B6.launches")
     return Y
 
 

@@ -7,22 +7,18 @@ replaces the TPU kernel `_ell_kernel` (saddle_point_petsc_tpu/ops/pallas/
 spmv.py), which takes the same layout (`ell_transpose`). On CPU tensors it
 runs the plain PyTorch version `ell_spmv_plain`; on CUDA tensors it
 launches the CUDA kernel in csrc/ell_spmv.cu, built at first use by
-`_build`, or raises. `launches` counts the kernel launches;
-`reset_launches()` zeroes it.
+`_build`, or raises. Each launch adds 1 to
+`B5.launches` in `utils.monitor.counters`.
 """
 from __future__ import annotations
 
 import torch
 
-launches = 0  # kernel B5 launches since the last reset_launches()
+from saddle_point_petsc_tpu_torch.utils import monitor
+
 
 _DTYPES = (torch.float32, torch.float64)
 _lib = None
-
-
-def reset_launches():
-    global launches
-    launches = 0
 
 
 def ell_spmv_plain(cols_t, vals_t, x):
@@ -79,7 +75,6 @@ def _library():
 def _launch(cols_t, vals_t, x):
     from saddle_point_petsc_tpu_torch.ops.cuda import _build
 
-    global launches
     lib = _library()
     nslots, m = cols_t.shape
     y = torch.empty((m,), dtype=x.dtype, device=x.device)
@@ -89,7 +84,7 @@ def _launch(cols_t, vals_t, x):
         rc = fn(cols_t.data_ptr(), vals_t.data_ptr(), x.data_ptr(), y.data_ptr(),
                 nslots, m, stream)
     _build.check(lib, "ell_spmv", rc)
-    launches += 1
+    monitor.count("B5.launches")
     return y
 
 

@@ -7,23 +7,18 @@ neighbours taken as zero. It replaces the TPU kernel
 tensors it runs the plain PyTorch version `planes_matmat_field` (from
 ops/stencil.py, re-exported here); on CUDA tensors it launches the CUDA
 kernel in csrc/stencil_spmm.cu, built at first use by `_build`, or raises.
-`launches` counts the kernel launches; `reset_launches()` zeroes it.
+Each launch adds 1 to `B2.launches` in `utils.monitor.counters`.
 """
 from __future__ import annotations
 
 import torch
 
 from saddle_point_petsc_tpu_torch.ops.stencil import planes_matmat_field  # noqa: F401
+from saddle_point_petsc_tpu_torch.utils import monitor
 
-launches = 0  # kernel B2 launches since the last reset_launches()
 
 _DTYPES = (torch.float32, torch.float64)
 _lib = None
-
-
-def reset_launches():
-    global launches
-    launches = 0
 
 
 def _check(planes, XT):
@@ -70,7 +65,6 @@ def _library():
 def _launch(planes, XT):
     from saddle_point_petsc_tpu_torch.ops.cuda import _build
 
-    global launches
     lib = _library()
     k = XT.shape[0]
     ny, nx = planes.shape[-2:]
@@ -80,7 +74,7 @@ def _launch(planes, XT):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
         rc = fn(planes.data_ptr(), XT.data_ptr(), Y.data_ptr(), k, ny, nx, stream)
     _build.check(lib, "stencil_spmm", rc)
-    launches += 1
+    monitor.count("B2.launches")
     return Y
 
 

@@ -10,9 +10,9 @@ Both replace the TPU kernel `_stencil_kernel`
 plain PyTorch versions, `planes_matvec_field` and `planes_matvec_padded`
 (from ops/stencil.py, re-exported here). On CUDA tensors they launch the
 CUDA kernel in csrc/stencil_spmv.cu, built at first use by `_build`, or
-raise. `launches` counts the kernel launches, `entry_launches` splits them
-by entry point and `dtype_launches` by type; `reset_launches()` zeroes
-all three.
+raise. Each launch adds 1, in `utils.monitor.counters`, to `B1.launches`,
+to `B1.launches.local` or `B1.launches.padded` by entry point, and to
+`B1.launches.float32` or `B1.launches.float64` by type.
 """
 from __future__ import annotations
 
@@ -22,20 +22,12 @@ from saddle_point_petsc_tpu_torch.ops.stencil import (  # noqa: F401
     planes_matvec_field,
     planes_matvec_padded,
 )
-
-launches = 0  # kernel B1 launches since the last reset_launches()
-entry_launches = {"stencil_spmv": 0, "stencil_spmv_padded": 0}  # the same, by entry
-dtype_launches = {torch.float32: 0, torch.float64: 0}  # the same, by type
+from saddle_point_petsc_tpu_torch.utils import monitor
 
 _DTYPES = (torch.float32, torch.float64)
-
-
-def reset_launches():
-    global launches
-    launches = 0
-    for counts in (entry_launches, dtype_launches):
-        for k in counts:
-            counts[k] = 0
+# the counter keys of a launch, by entry (padded or not) and by type
+_ENTRY_KEY = {False: "B1.launches.local", True: "B1.launches.padded"}
+_DTYPE_KEY = {torch.float32: "B1.launches.float32", torch.float64: "B1.launches.float64"}
 
 
 def _check(planes, x, halo):
@@ -86,7 +78,6 @@ def _library():
 def _launch(planes, x, padded):
     from saddle_point_petsc_tpu_torch.ops.cuda import _build
 
-    global launches
     lib = _library()
     ny, nx = planes.shape[-2:]
     y = torch.empty((2, ny, nx), dtype=planes.dtype, device=planes.device)
@@ -95,9 +86,9 @@ def _launch(planes, x, padded):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
         rc = fn(planes.data_ptr(), x.data_ptr(), y.data_ptr(), ny, nx, int(padded), stream)
     _build.check(lib, "stencil_spmv", rc)
-    launches += 1
-    entry_launches["stencil_spmv_padded" if padded else "stencil_spmv"] += 1
-    dtype_launches[planes.dtype] += 1
+    monitor.count("B1.launches")
+    monitor.count(_ENTRY_KEY[padded])
+    monitor.count(_DTYPE_KEY[planes.dtype])
     return y
 
 

@@ -23,6 +23,13 @@ rows, zero right-hand side), harmless to Krylov and to iteration counts.
 Element coordinates come from the same `torch.linspace` as the serial
 assembly (models/fem.py), sliced to the rank's elements, so a world of one
 assembles the serial operator bit for bit.
+
+Spans (utils/monitor.py): `assemble_poisson_dist` and
+`assemble_saddle_dist` run under `MatAssembly`; in it, the element
+matrices and loads under `FEElementMatrices` and `FEElementRHS`
+(models/fem.py), their sum into the stencil planes under `MatSetValues`,
+the Dirichlet mask and elimination under `FEBoundary`, the constraint rows
+under `FEConstraints`, and the ghost folds under `HaloAdd`.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from saddle_point_petsc_tpu_torch.parallel.halo import (
 from saddle_point_petsc_tpu_torch.parallel.mesh import ProcessMesh, gather_field
 from saddle_point_petsc_tpu_torch.solvers import precond
 from saddle_point_petsc_tpu_torch.solvers.operators import SaddleOperator, constraint_apply, constraint_apply_t
+from saddle_point_petsc_tpu_torch.utils.monitor import span
 
 _NODE_OFF = ((0, 0), (1, 0), (1, 1), (0, 1))
 
@@ -291,37 +299,44 @@ def assemble_poisson_dist(grid: DistGrid, dtype=torch.float64, body_force="const
     system on the mesh's device: per-rank element batches, `halo_add`
     ghost accumulation, symmetric elimination with neighbour masks.
     Returns (A: DistStencilOperator, f, mask), each this rank's patch."""
+    with span("MatAssembly"):
+        return _assemble_poisson(grid, dtype, body_force)
+
+
+def _assemble_poisson(grid: DistGrid, dtype, body_force):
     mesh, my, mx = grid.mesh, grid.my, grid.mx
     dev = mesh.device
     corners = _local_elements(grid, dtype, dev)
     ej, ei = corners.shape[:2]
     kb = fem.element_stiffness(corners).reshape(ej, ei, 4, 2, 4, 2)
-    Wp = torch.zeros((4, 3, 3, my + 2, mx + 2), dtype=dtype, device=dev)
-    for a, (aj, ai) in enumerate(_NODE_OFF):
-        for b, (bj, bi) in enumerate(_NODE_OFF):
-            contrib = kb[:, :, a, :, b, :].permute(2, 3, 0, 1).reshape(4, ej, ei)
-            # in place: Wp is the fresh accumulator made above
-            Wp[:, bj - aj + 1, bi - ai + 1, 1 + aj : 1 + aj + ej, 1 + ai : 1 + ai + ei] += contrib
+    with span("MatSetValues"):
+        Wp = torch.zeros((4, 3, 3, my + 2, mx + 2), dtype=dtype, device=dev)
+        for a, (aj, ai) in enumerate(_NODE_OFF):
+            for b, (bj, bi) in enumerate(_NODE_OFF):
+                contrib = kb[:, :, a, :, b, :].permute(2, 3, 0, 1).reshape(4, ej, ei)
+                # in place: Wp is the fresh accumulator made above
+                Wp[:, bj - aj + 1, bi - ai + 1, 1 + aj : 1 + aj + ej, 1 + ai : 1 + ai + ei] += contrib
     del kb
     W = halo_add(Wp, mesh)
     bf = fem.BODY_FORCES[body_force] if isinstance(body_force, str) else body_force
     f = halo_add(_scatter_nodes(fem.element_rhs(corners, bf).reshape(ej, ei, 4, 2), my, mx), mesh)
-    # masks: the Dirichlet boundary of the true grid, plus the padding nodes
-    nyn, nxn = grid.ney + 1, grid.nex + 1
-    gj = grid.jlo + torch.arange(my, device=dev)[:, None]
-    gi = grid.ilo + torch.arange(mx, device=dev)[None, :]
-    inactive = (gj >= nyn) | (gi >= nxn)
-    mask = ((gi == 0) | (gi == nxn - 1) | (gj == 0) | (gj == nyn - 1)) | inactive
-    # symmetric elimination, with the neighbours' masks from the exchange
-    maskp = halo_exchange(mask.to(dtype), mesh) > 0.5
-    W = torch.where(mask, 0.0, W)
-    for dj in range(3):
-        for di in range(3):
-            # in place: W is the fresh tensor made by torch.where above
-            W[:, dj, di] *= torch.where(maskp[dj : dj + my, di : di + mx], 0.0, 1.0).to(dtype)
-    W[0, 1, 1] = torch.where(mask, 1.0, W[0, 1, 1])
-    W[3, 1, 1] = torch.where(mask, 1.0, W[3, 1, 1])
-    f = torch.where(mask, 0.0, f)
+    with span("FEBoundary"):
+        # masks: the Dirichlet boundary of the true grid, plus the padding nodes
+        nyn, nxn = grid.ney + 1, grid.nex + 1
+        gj = grid.jlo + torch.arange(my, device=dev)[:, None]
+        gi = grid.ilo + torch.arange(mx, device=dev)[None, :]
+        inactive = (gj >= nyn) | (gi >= nxn)
+        mask = ((gi == 0) | (gi == nxn - 1) | (gj == 0) | (gj == nyn - 1)) | inactive
+        # symmetric elimination, with the neighbours' masks from the exchange
+        maskp = halo_exchange(mask.to(dtype), mesh) > 0.5
+        W = torch.where(mask, 0.0, W)
+        for dj in range(3):
+            for di in range(3):
+                # in place: W is the fresh tensor made by torch.where above
+                W[:, dj, di] *= torch.where(maskp[dj : dj + my, di : di + mx], 0.0, 1.0).to(dtype)
+        W[0, 1, 1] = torch.where(mask, 1.0, W[0, 1, 1])
+        W[3, 1, 1] = torch.where(mask, 1.0, W[3, 1, 1])
+        f = torch.where(mask, 0.0, f)
     A = DistStencilOperator(W.contiguous(), mesh, active_shape=(nyn, nxn))
     return A, f.contiguous(), mask
 
@@ -331,27 +346,29 @@ def assemble_constraints_dist(grid: DistGrid, mask, dtype=torch.float64):
     functionals of models/saddle.py, assembled per rank with `halo_add`."""
     from saddle_point_petsc_tpu_torch.models.saddle import default_constraints
 
-    mesh, my, mx = grid.mesh, grid.my, grid.mx
-    corners = _local_elements(grid, dtype, mesh.device)
-    xi, w = fem.gauss_quadrature_q1(dtype, mesh.device)
-    ni = fem.shape_q1(xi)
-    _, det = fem.grad_shape_physical(fem.grad_shape_q1(xi), corners[..., None, :, :])
-    xp = ni @ corners  # (ej, ei, gp, 2)
-    rows = []
-    for fn in default_constraints():
-        wx, wy = fn(xp[..., 0], xp[..., 1])
-        be = ni.transpose(0, 1) @ ((w * det)[..., None] * torch.stack([wx, wy], dim=-1))
-        rows.append(halo_add(_scatter_nodes(be, my, mx), mesh))
-    return torch.where(mask, 0.0, torch.stack(rows)).contiguous()
+    with span("FEConstraints"):
+        mesh, my, mx = grid.mesh, grid.my, grid.mx
+        corners = _local_elements(grid, dtype, mesh.device)
+        xi, w = fem.gauss_quadrature_q1(dtype, mesh.device)
+        ni = fem.shape_q1(xi)
+        _, det = fem.grad_shape_physical(fem.grad_shape_q1(xi), corners[..., None, :, :])
+        xp = ni @ corners  # (ej, ei, gp, 2)
+        rows = []
+        for fn in default_constraints():
+            wx, wy = fn(xp[..., 0], xp[..., 1])
+            be = ni.transpose(0, 1) @ ((w * det)[..., None] * torch.stack([wx, wy], dim=-1))
+            rows.append(halo_add(_scatter_nodes(be, my, mx), mesh))
+        return torch.where(mask, 0.0, torch.stack(rows)).contiguous()
 
 
 def assemble_saddle_dist(grid: DistGrid, dtype=torch.float64, body_force="trig"):
     """Distributed KKT system: (K, (f, g), mask), with K's planes, Bf and f
     this rank's patches and g replicated (BASELINE configs 4-5)."""
-    A, f, mask = assemble_poisson_dist(grid, dtype, body_force)
-    Bf = assemble_constraints_dist(grid, mask, dtype)
-    g = torch.zeros((Bf.shape[0],), dtype=dtype, device=grid.mesh.device)
-    return DistSaddleOperator(A, Bf), (f, g), mask
+    with span("MatAssembly"):
+        A, f, mask = _assemble_poisson(grid, dtype, body_force)
+        Bf = assemble_constraints_dist(grid, mask, dtype)
+        g = torch.zeros((Bf.shape[0],), dtype=dtype, device=grid.mesh.device)
+        return DistSaddleOperator(A, Bf), (f, g), mask
 
 
 def patch_truncate(A: DistStencilOperator) -> DistStencilOperator:

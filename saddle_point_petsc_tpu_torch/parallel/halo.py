@@ -21,6 +21,12 @@ before a send; receives land in fresh contiguous buffers. Works on CPU
 tensors over gloo and CUDA tensors over NCCL, never CUDA tensors over
 gloo.
 
+Every send posted adds 1 to `halo.messages` and its bytes to `halo.bytes`
+in `utils.monitor.counters` (none in a world of one, which has no
+neighbour). The exchanges run under the span `HaloExchange` (the posting
+of the overlap form only with more than one rank), the fold under
+`HaloAdd` (utils/monitor.py).
+
 `halo_add_df` (the f32-pair fold) is not ported: the port assembles in
 f64.
 """
@@ -30,6 +36,8 @@ import dataclasses
 
 import torch
 import torch.distributed as dist
+
+from saddle_point_petsc_tpu_torch.utils import monitor
 
 # the eight box directions (dj, di), in the one order every rank posts them
 DIRECTIONS = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1))
@@ -67,6 +75,8 @@ def _swap_start(mesh, sends):
         if peer is None:
             continue
         t = make()
+        monitor.count("halo.messages")
+        monitor.count("halo.bytes", t.nbytes)
         buf = torch.empty_like(t)
         ghosts[d] = buf
         ops.append(dist.P2POp(dist.isend, t, peer, group=mesh.group))
@@ -96,24 +106,35 @@ def halo_exchange(x, mesh):
     """Pad a (..., my, mx) patch with a 1-ring of neighbour values, in two
     phases: x (the last axis), then y with the new ghost columns, so the
     corners ride along. Returns (..., my+2, mx+2)."""
-    g = _swap(mesh, {d: lambda d=d: _face(x, d) for d in ((0, -1), (0, 1))})
-    xw = pad_with_ghosts(x, g)[..., 1:-1, :]
-    g = _swap(mesh, {d: lambda d=d: _face(xw, d) for d in ((-1, 0), (1, 0))})
-    return pad_with_ghosts(xw, g)[..., :, 1:-1]
+    with monitor.span("HaloExchange"):
+        g = _swap(mesh, {d: lambda d=d: _face(x, d) for d in ((0, -1), (0, 1))})
+        xw = pad_with_ghosts(x, g)[..., 1:-1, :]
+        g = _swap(mesh, {d: lambda d=d: _face(xw, d) for d in ((-1, 0), (1, 0))})
+        return pad_with_ghosts(xw, g)[..., :, 1:-1]
 
 
 def halo_exchange_1phase_start(x, mesh) -> PendingHalo:
     """Post the single-phase box exchange: the 4 edges and 4 corners of x
     to the 8 neighbours, concurrently, as one batch. The caller may launch
     work on x before `wait()` (the overlap form of the distributed
-    matvec)."""
+    matvec). It runs under `HaloExchange` where the mesh has more than one
+    rank; in a world of one it posts nothing."""
+    if mesh.size == 1:
+        return _post_box(x, mesh)
+    with monitor.span("HaloExchange"):
+        return _post_box(x, mesh)
+
+
+def _post_box(x, mesh):
     return _swap_start(mesh, {d: lambda d=d: _face(x, d) for d in DIRECTIONS})
 
 
 def halo_exchange_1phase(x, mesh):
     """The production exchange: the same padded patch as `halo_exchange`
-    from one communication phase instead of two."""
-    return pad_with_ghosts(x, halo_exchange_1phase_start(x, mesh).wait())
+    from one communication phase instead of two. In a world of one it
+    still copies x into a fresh padded patch."""
+    with monitor.span("HaloExchange"):
+        return pad_with_ghosts(x, _post_box(x, mesh).wait())
 
 
 def halo_add(xp, mesh):
@@ -121,18 +142,19 @@ def halo_add(xp, mesh):
     (..., my+2, mx+2) patch onto its owners; returns the owned
     (..., my, mx) patch. Two phases in reverse order (y, then x), so
     corner contributions route through the edge ghosts."""
-    g = _swap(mesh, {(1, 0): lambda: xp[..., -1:, :].contiguous(), (-1, 0): lambda: xp[..., :1, :].contiguous()})
-    xw = xp[..., 1:-1, :].clone()
-    # in place: xw is the copy made above
-    if (-1, 0) in g:
-        xw[..., :1, :] += g[(-1, 0)]
-    if (1, 0) in g:
-        xw[..., -1:, :] += g[(1, 0)]
-    g = _swap(mesh, {(0, 1): lambda: xw[..., :, -1:].contiguous(), (0, -1): lambda: xw[..., :, :1].contiguous()})
-    x = xw[..., :, 1:-1].clone()
-    # in place: x is the copy made above
-    if (0, -1) in g:
-        x[..., :, :1] += g[(0, -1)]
-    if (0, 1) in g:
-        x[..., :, -1:] += g[(0, 1)]
-    return x
+    with monitor.span("HaloAdd"):
+        g = _swap(mesh, {(1, 0): lambda: xp[..., -1:, :].contiguous(), (-1, 0): lambda: xp[..., :1, :].contiguous()})
+        xw = xp[..., 1:-1, :].clone()
+        # in place: xw is the copy made above
+        if (-1, 0) in g:
+            xw[..., :1, :] += g[(-1, 0)]
+        if (1, 0) in g:
+            xw[..., -1:, :] += g[(1, 0)]
+        g = _swap(mesh, {(0, 1): lambda: xw[..., :, -1:].contiguous(), (0, -1): lambda: xw[..., :, :1].contiguous()})
+        x = xw[..., :, 1:-1].clone()
+        # in place: x is the copy made above
+        if (0, -1) in g:
+            x[..., :, :1] += g[(0, -1)]
+        if (0, 1) in g:
+            x[..., :, -1:] += g[(0, 1)]
+        return x

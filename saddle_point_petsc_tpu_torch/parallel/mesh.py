@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from saddle_point_petsc_tpu_torch.utils import monitor
 from saddle_point_petsc_tpu_torch.utils.device import resolve_device
 
 # every process group gets a timeout, so that a mismatched send or
@@ -163,10 +164,14 @@ class ProcessMesh:
 
     def all_reduce(self, t, op=dist.ReduceOp.SUM):
         """Reduce `t` over the ranks by `op` (a sum by default), in place
-        (one all_reduce); returns t. A world of one is the identity and
-        calls no collective."""
+        (one all_reduce, under the span `AllReduce`, counted in
+        `all_reduce.calls` and `all_reduce.bytes`); returns t. A world of
+        one is the identity and calls and counts no collective."""
         if self.size > 1:
-            dist.all_reduce(t, op=op, group=self.group)
+            monitor.count("all_reduce.calls")
+            monitor.count("all_reduce.bytes", t.nbytes)
+            with monitor.span("AllReduce"):
+                dist.all_reduce(t, op=op, group=self.group)
         return t
 
     def all_to_all(self, inp, out=None, async_op=False):
@@ -176,9 +181,12 @@ class ProcessMesh:
         `out`: a contiguous buffer shaped like inp to receive into, else a
         fresh one. Returns the output, or with async_op a PendingAllToAll.
         A world of one is the identity (inp itself) and calls no
-        collective."""
+        collective. Counts the size - 1 messages to the other ranks and
+        their bytes (`all_to_all.messages`, `all_to_all.bytes`)."""
         if self.size == 1:
             return PendingAllToAll(None, inp) if async_op else inp
+        monitor.count("all_to_all.messages", self.size - 1)
+        monitor.count("all_to_all.bytes", inp.nbytes // self.size * (self.size - 1))
         out = torch.empty_like(inp) if out is None else out
         work = dist.all_to_all_single(out, inp, group=self.group, async_op=async_op)
         return PendingAllToAll(work, out) if async_op else out

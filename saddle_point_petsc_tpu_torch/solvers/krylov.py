@@ -18,6 +18,13 @@ where rnorm0 is the norm of the (preconditioned, for left-PC solvers)
 right-hand side. CG/MINRES/GMRES track the preconditioned residual norm;
 FGMRES (right PC) tracks the true residual norm.
 
+Spans (utils/monitor.py, recorded while a torch profiler runs): each
+apply of the operator inside a solver's loop runs under `MatMult`, each
+apply of the PC under `PCApply`, and each host sync with the convergence
+test it feeds under `KSPConvergedTest`. They sit here, at the call sites:
+the solvers take A itself, through which `reduces_over_ranks` finds the
+mesh.
+
 Distributed vectors (parallel/dist.py, parallel/dist_csr.py): a
 distributed operator declares, leaf by leaf, how its vectors lie over the
 ranks (`dist_leaves`): "patch" (this rank's patch of a global grid field),
@@ -43,6 +50,8 @@ import math
 from typing import Any, Callable, Optional
 
 import torch
+
+from saddle_point_petsc_tpu_torch.utils.monitor import span
 
 # -- converged reasons (subset of PETSc KSPConvergedReason codes) -----------
 CONVERGED_RTOL = 2
@@ -195,6 +204,16 @@ def _identity(x):
     return x
 
 
+def _matmult(A, x):
+    with span("MatMult"):
+        return A(x)
+
+
+def _pcapply(M, r):
+    with span("PCApply"):
+        return M(r)
+
+
 def _check_convergence(rnorm, rnorm0, rtol, atol, dtol, it, maxiter):
     """PETSc KSPConvergedDefault logic on host floats -> (done, reason).
 
@@ -258,34 +277,37 @@ def cg(
             return tnorm(r)
         return torch.sqrt(torch.abs(rzdot))
 
-    r = tsub(b, A(x))
-    z = M(r)
+    r = tsub(b, _matmult(A, x))
+    z = _pcapply(M, r)
     rz = tdot(r, z)
-    zb = M(b)
-    bnorm = norm_of(b, zb, tdot(b, zb)).item()
-    rnorm = norm_of(r, z, rz).item()
+    zb = _pcapply(M, b)
+    norms = torch.stack([norm_of(b, zb, tdot(b, zb)), norm_of(r, z, rz)])
+    with span("KSPConvergedTest"):
+        bnorm, rnorm = norms.tolist()
     history = [rnorm]
     _monitor_print(monitor, 0, rnorm)
     done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, 0, maxiter)
     p = z
     while not done:
-        w = A(p)
+        w = _matmult(A, p)
         pw = tdot(p, w)
         alpha = rz / pw
         x = taxpy(alpha, p, x)
         r = taxpy(-alpha, w, r)
-        z = M(r)
+        z = _pcapply(M, r)
         rz_new = tdot(r, z)
         beta = rz_new / rz
         p = taxpy(beta, p, z)
         rz = rz_new
-        rnorm, pw_h = torch.stack([norm_of(r, z, rz_new), pw]).tolist()
-        history.append(rnorm)
-        it = len(history) - 1
-        _monitor_print(monitor, it, rnorm)
-        done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, it, maxiter)
-        if pw_h <= 0.0:  # indefinite operator guard
-            done, reason = True, DIVERGED_NULL
+        stats = torch.stack([norm_of(r, z, rz_new), pw])
+        with span("KSPConvergedTest"):
+            rnorm, pw_h = stats.tolist()
+            history.append(rnorm)
+            it = len(history) - 1
+            _monitor_print(monitor, it, rnorm)
+            done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, it, maxiter)
+            if pw_h <= 0.0:  # indefinite operator guard
+                done, reason = True, DIVERGED_NULL
     return _result(x, history, maxiter, bnorm, reason)
 
 
@@ -331,10 +353,10 @@ def cg_multi(
     """
     M = M or _identity
     X = torch.zeros_like(B) if x0 is None else x0
-    R = B - A(X)
-    Z = M(R)
+    R = B - _matmult(A, X)
+    Z = _pcapply(M, R)
     rz = _kdot(R, Z)
-    Zb = M(B)
+    Zb = _pcapply(M, B)
     bnorm = torch.sqrt(_kdot(Zb, Zb))
     rnorm = torch.sqrt(_kdot(Z, Z))
     thresh = torch.clamp_min(rtol * bnorm, atol)
@@ -342,19 +364,21 @@ def cg_multi(
     reason = torch.where(done, CONVERGED_RTOL, 0)
 
     def fetch():
-        return torch.stack([t.to(torch.float64) for t in (rnorm, done, reason)]).tolist()
+        stats = torch.stack([t.to(torch.float64) for t in (rnorm, done, reason)])
+        with span("KSPConvergedTest"):
+            return stats.tolist()
 
     rn_h, done_h, reason_h = fetch()
     history = [rn_h]
     P = Z
     it = 0
     while not all(done_h):
-        W = A(P)
+        W = _matmult(A, P)
         pw = _kdot(P, W)
         alpha = torch.where(done, 0.0, rz / torch.where(pw == 0, 1.0, pw))
         X = _kax(alpha, P, X)
         R = _kax(-alpha, W, R)
-        Z = M(R)
+        Z = _pcapply(M, R)
         rz_new = _kdot(R, Z)
         beta = torch.where(done, 0.0, rz_new / torch.where(rz == 0, 1.0, rz))
         P = _kax(beta, P, Z)
@@ -409,17 +433,19 @@ def minres(
     M = M or _identity
     x = tzeros_like(b) if x0 is None else x0
 
-    r2 = tsub(b, A(x))
-    y = M(r2)
+    r2 = tsub(b, _matmult(A, x))
+    y = _pcapply(M, r2)
     beta1sq = tdot(r2, y)
     beta1 = torch.sqrt(torch.clamp_min(beta1sq, 0.0))
-    bnorm_t = torch.sqrt(torch.clamp_min(tdot(b, M(b)), 0.0))
-    rnorm, bnorm, beta1sq_h = torch.stack([beta1, bnorm_t, beta1sq]).tolist()
-    history = [rnorm]
-    _monitor_print(monitor, 0, rnorm)
-    done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, 0, maxiter)
-    if beta1sq_h < 0.0:
-        done, reason = True, DIVERGED_INDEFINITE_PC
+    bnorm_t = torch.sqrt(torch.clamp_min(tdot(b, _pcapply(M, b)), 0.0))
+    stats = torch.stack([beta1, bnorm_t, beta1sq])
+    with span("KSPConvergedTest"):
+        rnorm, bnorm, beta1sq_h = stats.tolist()
+        history = [rnorm]
+        _monitor_print(monitor, 0, rnorm)
+        done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, 0, maxiter)
+        if beta1sq_h < 0.0:
+            done, reason = True, DIVERGED_INDEFINITE_PC
 
     eps = torch.finfo(beta1.dtype).eps
     zero = tzeros_like(b)
@@ -436,13 +462,13 @@ def minres(
     while not done:
         it += 1
         v = tscale(1.0 / beta, y)
-        y = A(v)
+        y = _matmult(A, v)
         if it >= 2:
             y = taxpy(-(beta / oldb), r1, y)
         alfa = tdot(v, y)
         y = taxpy(-(alfa / beta), r2, y)
         r1, r2 = r2, y
-        y = M(r2)
+        y = _pcapply(M, r2)
         oldb = beta
         beta = torch.sqrt(torch.clamp_min(tdot(r2, y), 0.0))
         # Givens QR of the tridiagonal
@@ -459,10 +485,11 @@ def minres(
         w1, w2 = w2, w
         w = tscale(1.0 / gamma, tsub(v, tadd(tscale(oldeps, w1), tscale(delta, w2))))
         x = taxpy(phi, w, x)
-        rnorm = torch.abs(phibar).item()
-        history.append(rnorm)
-        _monitor_print(monitor, it, rnorm)
-        done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, it, maxiter)
+        with span("KSPConvergedTest"):
+            rnorm = torch.abs(phibar).item()
+            history.append(rnorm)
+            _monitor_print(monitor, it, rnorm)
+            done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, it, maxiter)
     return _result(x, history, maxiter, bnorm, reason)
 
 
@@ -512,19 +539,22 @@ def _gmres_impl(A, b, M, x0, rtol, atol, dtol, maxiter, restart, monitor, flexib
     eps = torch.finfo(rdtype).eps
 
     def pre_res(x):
-        r = tsub(b, A(x))
-        return r if flexible else M(r)
+        r = tsub(b, _matmult(A, x))
+        return r if flexible else _pcapply(M, r)
 
-    bnorm = tnorm(b if flexible else M(b)).item()
+    bnorm_t = tnorm(b if flexible else _pcapply(M, b))
     x = x0
-    rnorm0 = tnorm(pre_res(x)).item()
-    history = [rnorm0]
-    _monitor_print(monitor, 0, rnorm0)
-    done, reason = _check_convergence(rnorm0, bnorm, rtol, atol, dtol, 0, maxiter)
+    rnorm0_t = tnorm(pre_res(x))
+    with span("KSPConvergedTest"):
+        bnorm, rnorm0 = bnorm_t.item(), rnorm0_t.item()
+        history = [rnorm0]
+        _monitor_print(monitor, 0, rnorm0)
+        done, reason = _check_convergence(rnorm0, bnorm, rtol, atol, dtol, 0, maxiter)
     while not done:  # one restart cycle of <= m Arnoldi steps
         r = pre_res(x)
         beta_t = tnorm(r)
-        beta = beta_t.item()
+        with span("KSPConvergedTest"):
+            beta = beta_t.item()
         V = [torch.zeros((m + 1, leaf.numel()), dtype=rdtype, device=device) for leaf in _leaves(b)]
         Z = [torch.zeros((m, leaf.numel()), dtype=rdtype, device=device) for leaf in _leaves(b)] if flexible else None
         # guard the division only against exact zero: an absolute floor
@@ -538,11 +568,11 @@ def _gmres_impl(A, b, M, x0, rtol, atol, dtol, maxiter, restart, monitor, flexib
         while not done and j < m:
             v = _basis_get(V, j, b)
             if flexible:
-                z = M(v)
+                z = _pcapply(M, v)
                 _basis_set(Z, j, z)
-                w = A(z)
+                w = _matmult(A, z)
             else:
-                w = M(A(v))
+                w = _pcapply(M, _matmult(A, v))
             # CGS2 against V[0..j]
             h1 = _basis_dots(V, j + 1, w)
             w = _basis_axpy(V, -h1, w)
@@ -550,27 +580,29 @@ def _gmres_impl(A, b, M, x0, rtol, atol, dtol, maxiter, restart, monitor, flexib
             w = _basis_axpy(V, -h2, w)
             hnew_t = tnorm(w)
             _basis_set(V, j + 1, tscale(1.0 / torch.where(hnew_t > 0, hnew_t, 1.0), w))
-            *h, hnew = torch.cat([h1 + h2, hnew_t[None]]).tolist()
-            col = h + [hnew] + [0.0] * (m - j - 1)
-            for i in range(j):  # previous Givens rotations
-                hi = cs[i] * col[i] + sn[i] * col[i + 1]
-                col[i + 1] = -sn[i] * col[i] + cs[i] * col[i + 1]
-                col[i] = hi
-            denom = math.sqrt(col[j] ** 2 + col[j + 1] ** 2)
-            denom = denom if denom > 0 else 1.0
-            cs[j], sn[j] = col[j] / denom, col[j + 1] / denom
-            col[j], col[j + 1] = denom, 0.0
-            g[j], g[j + 1] = cs[j] * g[j], -sn[j] * g[j]
-            for i in range(m + 1):
-                H[i][j] = col[i]
-            rnorm = abs(g[j + 1])
-            history.append(rnorm)
-            it = len(history) - 1
-            _monitor_print(monitor, it, rnorm)
-            done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, it, maxiter)
-            # happy breakdown, judged relative to the column magnitude
-            hcol = math.sqrt(sum(t * t for t in h) + hnew * hnew)
-            done = done or hnew <= eps * 100.0 * hcol
+            hcol_t = torch.cat([h1 + h2, hnew_t[None]])
+            with span("KSPConvergedTest"):
+                *h, hnew = hcol_t.tolist()
+                col = h + [hnew] + [0.0] * (m - j - 1)
+                for i in range(j):  # previous Givens rotations
+                    hi = cs[i] * col[i] + sn[i] * col[i + 1]
+                    col[i + 1] = -sn[i] * col[i] + cs[i] * col[i + 1]
+                    col[i] = hi
+                denom = math.sqrt(col[j] ** 2 + col[j + 1] ** 2)
+                denom = denom if denom > 0 else 1.0
+                cs[j], sn[j] = col[j] / denom, col[j + 1] / denom
+                col[j], col[j + 1] = denom, 0.0
+                g[j], g[j + 1] = cs[j] * g[j], -sn[j] * g[j]
+                for i in range(m + 1):
+                    H[i][j] = col[i]
+                rnorm = abs(g[j + 1])
+                history.append(rnorm)
+                it = len(history) - 1
+                _monitor_print(monitor, it, rnorm)
+                done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, it, maxiter)
+                # happy breakdown, judged relative to the column magnitude
+                hcol = math.sqrt(sum(t * t for t in h) + hnew * hnew)
+                done = done or hnew <= eps * 100.0 * hcol
             j += 1
         # back-substitution on the j x j triangular system
         y = [0.0] * j
@@ -693,13 +725,15 @@ def richardson(
     monitor flag is accepted and, as in the JAX package, prints nothing."""
     M = M or _identity
     x = tzeros_like(b) if x0 is None else x0
-    norms = [tnorm(tsub(b, A(x)))]
+    norms = [tnorm(tsub(b, _matmult(A, x)))]
     for _ in range(maxiter):
-        r = tsub(b, A(x))
-        x = taxpy(scale, M(r), x)
+        r = tsub(b, _matmult(A, x))
+        x = taxpy(scale, _pcapply(M, r), x)
         norms.append(tnorm(r))
-    bnorm, *history = torch.stack([tnorm(b)] + norms).tolist()
-    _, reason = _check_convergence(history[-1], bnorm, rtol, atol, dtol, maxiter, maxiter)
+    stats = torch.stack([tnorm(b)] + norms)
+    with span("KSPConvergedTest"):
+        bnorm, *history = stats.tolist()
+        _, reason = _check_convergence(history[-1], bnorm, rtol, atol, dtol, maxiter, maxiter)
     return _result(x, history, maxiter, bnorm, reason)
 
 
@@ -726,14 +760,16 @@ def chebyshev(
     theta = 0.5 * (lmax + lmin)
     delta = 0.5 * (lmax - lmin)
     sigma1 = theta / delta
-    r = tsub(b, A(x))
-    rnorm, bnorm = torch.stack([tnorm(r), tnorm(b)]).tolist()
-    history = [rnorm]
-    _monitor_print(monitor, 0, rnorm)
-    done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, 0, maxiter)
+    r = tsub(b, _matmult(A, x))
+    stats = torch.stack([tnorm(r), tnorm(b)])
+    with span("KSPConvergedTest"):
+        rnorm, bnorm = stats.tolist()
+        history = [rnorm]
+        _monitor_print(monitor, 0, rnorm)
+        done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, 0, maxiter)
     d, rho = None, 1.0
     while not done:
-        z = M(r)
+        z = _pcapply(M, r)
         if d is None:  # first step: d = z / theta
             rho = 1.0 / sigma1
             d = tscale(1.0 / theta, z)
@@ -742,12 +778,14 @@ def chebyshev(
             d = tadd(tscale(rho_new * rho, d), tscale(2.0 * rho_new / delta, z))
             rho = rho_new
         x = tadd(x, d)
-        r = tsub(b, A(x))
-        rnorm = tnorm(r).item()
-        history.append(rnorm)
-        it = len(history) - 1
-        _monitor_print(monitor, it, rnorm)
-        done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, it, maxiter)
+        r = tsub(b, _matmult(A, x))
+        rnorm_t = tnorm(r)
+        with span("KSPConvergedTest"):
+            rnorm = rnorm_t.item()
+            history.append(rnorm)
+            it = len(history) - 1
+            _monitor_print(monitor, it, rnorm)
+            done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, it, maxiter)
     return _result(x, history, maxiter, bnorm, reason)
 
 
@@ -770,12 +808,14 @@ def bcgs(
     the JAX package; the scalars stay 0-d tensors on the device."""
     M = M or _identity
     x = tzeros_like(b) if x0 is None else x0
-    r = tsub(b, A(x))
+    r = tsub(b, _matmult(A, x))
     r0hat = r
-    rnorm, bnorm = torch.stack([tnorm(r), tnorm(b)]).tolist()
-    history = [rnorm]
-    _monitor_print(monitor, 0, rnorm)
-    done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, 0, maxiter)
+    stats = torch.stack([tnorm(r), tnorm(b)])
+    with span("KSPConvergedTest"):
+        rnorm, bnorm = stats.tolist()
+        history = [rnorm]
+        _monitor_print(monitor, 0, rnorm)
+        done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, 0, maxiter)
     tiny = torch.finfo(_leaves(b)[0].dtype).tiny
 
     def safe(t):
@@ -788,21 +828,23 @@ def bcgs(
         rho_new = tdot(r0hat, r)
         beta = (rho_new / safe(rho)) * (alpha / safe(omega))
         p = taxpy(beta, taxpy(-omega, v, p), r)
-        phat = M(p)
-        v = A(phat)
+        phat = _pcapply(M, p)
+        v = _matmult(A, phat)
         alpha = rho_new / safe(tdot(r0hat, v))
         sres = taxpy(-alpha, v, r)
-        shat = M(sres)
-        t = A(shat)
+        shat = _pcapply(M, sres)
+        t = _matmult(A, shat)
         omega = tdot(t, sres) / safe(tdot(t, t))
         x = taxpy(omega, shat, taxpy(alpha, phat, x))
         r = taxpy(-omega, t, sres)
         rho = rho_new
-        rnorm = tnorm(r).item()
-        history.append(rnorm)
-        it = len(history) - 1
-        _monitor_print(monitor, it, rnorm)
-        done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, it, maxiter)
+        rnorm_t = tnorm(r)
+        with span("KSPConvergedTest"):
+            rnorm = rnorm_t.item()
+            history.append(rnorm)
+            it = len(history) - 1
+            _monitor_print(monitor, it, rnorm)
+            done, reason = _check_convergence(rnorm, bnorm, rtol, atol, dtol, it, maxiter)
     return _result(x, history, maxiter, bnorm, reason)
 
 

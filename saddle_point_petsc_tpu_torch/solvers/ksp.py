@@ -54,6 +54,9 @@ with -pc_ilu_sweeps, any other -> Chebyshev local solves with
 distributed hierarchy, `amg.dist_amg_pc`, with -pc_gamg_setup); sor and
 fieldsplit raise the JAX package's ValueError.
 
+`KSP.set_up` runs under the span `PCSetUp`, `KSP.solve` under `KSPSolve`
+and `KSP.mat_solve` under `KSPMatSolve` (utils/monitor.py).
+
 `KSP.mat_solve` (KSPMatSolve) solves for a batch of k right-hand sides
 with the pseudo-block CG (-ksp_type cg only, as in the JAX package) on a
 stencil, CSR, DIA or DistAIJ operator; none and jacobi scale the whole
@@ -76,6 +79,7 @@ from saddle_point_petsc_tpu_torch.solvers.amg import amg_pc, dist_amg_pc
 from saddle_point_petsc_tpu_torch.solvers.ilu_stencil import dist_ilu0, stencil_ilu0
 from saddle_point_petsc_tpu_torch.solvers.multigrid import mg_pc, mg_pc_dist
 from saddle_point_petsc_tpu_torch.solvers.operators import SaddleOperator
+from saddle_point_petsc_tpu_torch.utils.monitor import span
 from saddle_point_petsc_tpu_torch.utils.options import Options
 
 
@@ -233,7 +237,8 @@ class KSP:
     def set_up(self):
         """Build the PC (KSPSetUp)."""
         if self.M is None and self.A is not None:
-            self.M = make_pc(self.pc_type, self.A, self._opts(), ksp_type=self.ksp_type)
+            with span("PCSetUp"):
+                self.M = make_pc(self.pc_type, self.A, self._opts(), ksp_type=self.ksp_type)
         return self
 
     def view(self):
@@ -282,64 +287,66 @@ class KSP:
                 "mat_solve implements the pseudo-block CG (KSPMatSolve) only; "
                 f"got ksp_type={self.ksp_type}"
             )
-        if self.M is None:
-            self.set_up()
-        A, M = self.A, self.M
-        if isinstance(A, (StencilOperator, DistStencilOperator)):
-            Ab = A.matmat_field
-        elif isinstance(A, DistAIJ):
-            Ab = A.matmat_batch
-        else:
-            def Ab(X):
-                return A.matmat(X.T).T
-        if isinstance(M, (precond.IdentityPC, precond.JacobiPC)):
-            Mb = M
-        else:
-            def Mb(R):
-                return torch.stack([M(r) for r in R])
-        return krylov.cg_multi(
-            Ab, B, M=Mb, x0=x0, rtol=self.rtol, atol=self.atol, dtol=self.dtol,
-            maxiter=self.max_it,
-        )
+        with span("KSPMatSolve"):
+            if self.M is None:
+                self.set_up()
+            A, M = self.A, self.M
+            if isinstance(A, (StencilOperator, DistStencilOperator)):
+                Ab = A.matmat_field
+            elif isinstance(A, DistAIJ):
+                Ab = A.matmat_batch
+            else:
+                def Ab(X):
+                    return A.matmat(X.T).T
+            if isinstance(M, (precond.IdentityPC, precond.JacobiPC)):
+                Mb = M
+            else:
+                def Mb(R):
+                    return torch.stack([M(r) for r in R])
+            return krylov.cg_multi(
+                Ab, B, M=Mb, x0=x0, rtol=self.rtol, atol=self.atol, dtol=self.dtol,
+                maxiter=self.max_it,
+            )
 
     def solve(self, b, x0=None) -> krylov.KrylovResult:
         if self.ksp_type not in krylov.SOLVERS:
             raise ValueError(f"unknown ksp_type {self.ksp_type!r}")
-        if self.M is None:
-            self.set_up()
-        o = self._opts()
-        if o.get_bool("ksp_view"):
-            print(self.view())
-        kwargs = dict(
-            M=self.M,
-            x0=x0,
-            rtol=self.rtol,
-            atol=self.atol,
-            dtol=self.dtol,
-            maxiter=self.max_it,
-            monitor=self.monitor,
-        )
-        if self.ksp_type in ("gmres", "fgmres"):
-            kwargs["restart"] = self.restart
-        if self.ksp_type == "cg":
-            kwargs["norm_type"] = self.norm_type
-        if self.ksp_type == "chebyshev":
-            # PETSc KSPCHEBYSHEV: the bounds (0.1, 1.1) * lambda_max(M A)
-            # from a power iteration, unless -ksp_chebyshev_eigenvalues
-            # lmin,lmax gives them
-            ev = o.get_str("ksp_chebyshev_eigenvalues", "")
-            if ev:
-                lmin, lmax = (float(t) for t in ev.split(","))
-            else:
-                est = precond.estimate_lmax(self.A, M=self.M, template=b)
-                lmin, lmax = 0.1 * est, 1.1 * est
-            kwargs["lmin"], kwargs["lmax"] = lmin, lmax
-        res = krylov.SOLVERS[self.ksp_type](self.A, b, **kwargs)
-        if o.get_bool("ksp_converged_reason"):
-            word = "CONVERGED" if res.converged_reason > 0 else "DIVERGED"
-            print(
-                f"Linear solve {word} due to {res.reason_name()} "
-                f"iterations {res.iterations}",
-                file=sys.stdout,
+        with span("KSPSolve"):
+            if self.M is None:
+                self.set_up()
+            o = self._opts()
+            if o.get_bool("ksp_view"):
+                print(self.view())
+            kwargs = dict(
+                M=self.M,
+                x0=x0,
+                rtol=self.rtol,
+                atol=self.atol,
+                dtol=self.dtol,
+                maxiter=self.max_it,
+                monitor=self.monitor,
             )
-        return res
+            if self.ksp_type in ("gmres", "fgmres"):
+                kwargs["restart"] = self.restart
+            if self.ksp_type == "cg":
+                kwargs["norm_type"] = self.norm_type
+            if self.ksp_type == "chebyshev":
+                # PETSc KSPCHEBYSHEV: the bounds (0.1, 1.1) * lambda_max(M A)
+                # from a power iteration, unless -ksp_chebyshev_eigenvalues
+                # lmin,lmax gives them
+                ev = o.get_str("ksp_chebyshev_eigenvalues", "")
+                if ev:
+                    lmin, lmax = (float(t) for t in ev.split(","))
+                else:
+                    est = precond.estimate_lmax(self.A, M=self.M, template=b)
+                    lmin, lmax = 0.1 * est, 1.1 * est
+                kwargs["lmin"], kwargs["lmax"] = lmin, lmax
+            res = krylov.SOLVERS[self.ksp_type](self.A, b, **kwargs)
+            if o.get_bool("ksp_converged_reason"):
+                word = "CONVERGED" if res.converged_reason > 0 else "DIVERGED"
+                print(
+                    f"Linear solve {word} due to {res.reason_name()} "
+                    f"iterations {res.iterations}",
+                    file=sys.stdout,
+                )
+            return res

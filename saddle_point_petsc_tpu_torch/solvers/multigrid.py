@@ -34,6 +34,17 @@ every rank and the V-cycle finishes there on the serial hierarchy of the
 gathered grid, every rank holding the same dense inverse. Padding nodes
 are identity rows: z = r there. A world of one runs the same code,
 exchanging with no peer, and gives the serial `mg_pc`'s bits.
+
+Spans (utils/monitor.py, recorded while a torch profiler runs): an apply
+runs under `MGApply`; in it, level k's smoothing (pre and post) under
+`MGSmooth Lk`, its residuals under `MGResid Lk`, restriction under
+`MGRestrict Lk`, prolongation under `MGInterp Lk`, the dense coarse solve
+under `MGCoarseSolve`, and the distributed hierarchy's gather to every
+rank and scatter back under `MGGather` and `MGScatter`. Set-up runs level
+k under `MGSetUp Lk` (smoothers, with their eigen-estimates, and the
+Galerkin product) and the dense inverse under `MGCoarseSetUp`. Levels are
+numbered from the finest, 0, through the split levels and then the
+replicated tail; the names are built once, at set-up (`LevelSpans`).
 """
 from __future__ import annotations
 
@@ -53,6 +64,7 @@ from saddle_point_petsc_tpu_torch.parallel.dist import DistStencilOperator
 from saddle_point_petsc_tpu_torch.parallel.halo import halo_exchange_1phase
 from saddle_point_petsc_tpu_torch.parallel.mesh import all_gather_tiles
 from saddle_point_petsc_tpu_torch.solvers import precond
+from saddle_point_petsc_tpu_torch.utils.monitor import span
 
 
 def _pad1(x):
@@ -188,10 +200,26 @@ def galerkin_coarse_stencil_probe(op: StencilOperator) -> StencilOperator:
 
 
 @dataclasses.dataclass(frozen=True)
+class LevelSpans:
+    """The span names of level k, built once at set-up."""
+
+    smooth: str
+    resid: str
+    restrict: str
+    interp: str
+    setup: str
+
+    @staticmethod
+    def of(k):
+        return LevelSpans(*(f"{event} L{k}" for event in ("MGSmooth", "MGResid", "MGRestrict", "MGInterp", "MGSetUp")))
+
+
+@dataclasses.dataclass(frozen=True)
 class MGLevel:
     A: StencilOperator
     smoother: Any  # PC applied as the pre-smoother
     post_smoother: Any = None  # None: the same as `smoother`
+    spans: LevelSpans = LevelSpans.of(0)
 
     @property
     def post(self):
@@ -209,14 +237,22 @@ class MGPC:
     cycles: int = 1
 
     def __call__(self, r):
+        with span("MGApply"):
+            return self._apply(r)
+
+    def _apply(self, r):
         flat = r.ndim == 1
         if not self.levels:  # a grid too small to coarsen: the dense solve is exact
-            return self.coarse_inv @ r if flat else self._coarse_solve(r)
+            with span("MGCoarseSolve"):
+                return self.coarse_inv @ r if flat else self._coarse_solve(r)
         if flat:
             r = flat_to_field(r, *self.levels[0].A.grid_shape)
+        lvl = self.levels[0]
         z = torch.zeros_like(r)
         for _ in range(self.cycles):
-            z = z + self._vcycle(0, r - self.levels[0].A.matvec_field(z))
+            with span(lvl.spans.resid):
+                res = r - lvl.A.matvec_field(z)
+            z = z + self._vcycle(0, res)
         return field_to_flat(z) if flat else z
 
     def _coarse_solve(self, r):
@@ -227,14 +263,24 @@ class MGPC:
 
     def _vcycle(self, k, r):
         if k == len(self.levels):
-            return self._coarse_solve(r)
+            with span("MGCoarseSolve"):
+                return self._coarse_solve(r)
         lvl = self.levels[k]
-        z = lvl.smoother(r)  # pre-smooth from a zero initial guess
-        res = r - lvl.A.matvec_field(z)
+        names = lvl.spans
+        with span(names.smooth):
+            z = lvl.smoother(r)  # pre-smooth from a zero initial guess
+        with span(names.resid):
+            res = r - lvl.A.matvec_field(z)
         ny, nx = r.shape[-2:]
-        zc = self._vcycle(k + 1, restrict(res, (ny + 1) // 2, (nx + 1) // 2))
-        z = z + prolong(zc, ny, nx)
-        return z + lvl.post(r - lvl.A.matvec_field(z))  # post-smooth
+        with span(names.restrict):
+            rc = restrict(res, (ny + 1) // 2, (nx + 1) // 2)
+        zc = self._vcycle(k + 1, rc)
+        with span(names.interp):
+            z = z + prolong(zc, ny, nx)
+        with span(names.resid):
+            res = r - lvl.A.matvec_field(z)
+        with span(names.smooth):
+            return z + lvl.post(res)  # post-smooth
 
 
 @dataclasses.dataclass(frozen=True)
@@ -304,21 +350,27 @@ def _check_coarsest(cny, cnx):
         )
 
 
-def mg_pc(A: StencilOperator, opts=None, max_levels=10, coarse_size=5, smoother="sor", cycles=1) -> MGPC:
+def mg_pc(A: StencilOperator, opts=None, max_levels=10, coarse_size=5, smoother="sor", cycles=1,
+          level0=0) -> MGPC:
     """Build the hierarchy on A's device: Galerkin coarsening while both
     node counts are odd and above `coarse_size`, up to `max_levels`
     levels (the coarsest included), then a dense inverse of the coarsest
     operator on the host. Options: -pc_mg_levels, -pc_mg_smoother
-    {sor,sor-fb,chebyshev,jacobi}, -pc_mg_cycles."""
+    {sor,sor-fb,chebyshev,jacobi}, -pc_mg_cycles. `level0` numbers the
+    first level in the span names (a distributed hierarchy's tail
+    continues its count)."""
     max_levels, smoother, cycles = _mg_options(opts, max_levels, smoother, cycles)
     levels = []
     op = A
     while _coarsens(op.grid_shape, len(levels), max_levels, coarse_size):
-        levels.append(MGLevel(op, *_smoothers(op, smoother)))
-        op = galerkin_coarse_stencil(op)
+        names = LevelSpans.of(level0 + len(levels))
+        with span(names.setup):
+            levels.append(MGLevel(op, *_smoothers(op, smoother), spans=names))
+            op = galerkin_coarse_stencil(op)
     _check_coarsest(*op.grid_shape)
-    dense = _stencil_to_dense_host(op.W.detach().cpu().numpy())
-    coarse_inv = torch.tensor(np.linalg.inv(dense), device=op.planes.device)
+    with span("MGCoarseSetUp"):
+        dense = _stencil_to_dense_host(op.W.detach().cpu().numpy())
+        coarse_inv = torch.tensor(np.linalg.inv(dense), device=op.planes.device)
     return MGPC(tuple(levels), coarse_inv, cycles)
 
 
@@ -429,37 +481,51 @@ class DistMGPC:
     cycles: int = 1
 
     def __call__(self, r):
-        mj, mi = self.active
-        ra = r[:, :mj, :mi]
-        if self.levels:
-            A0 = self.levels[0].A
-            z = torch.zeros_like(ra)
-            for _ in range(self.cycles):
-                z = z + self._vcycle(0, ra - A0.matvec_field(z))
-        else:  # the whole hierarchy is replicated
-            z = self._scatter(self.tail(self._gather(ra)))
-        if (mj, mi) == tuple(r.shape[-2:]):
-            return z
-        out = r.clone()
-        out[:, :mj, :mi] = z  # in place: out is the copy of r made above
-        return out
+        with span("MGApply"):
+            mj, mi = self.active
+            ra = r[:, :mj, :mi]
+            if self.levels:
+                lvl = self.levels[0]
+                z = torch.zeros_like(ra)
+                for _ in range(self.cycles):
+                    with span(lvl.spans.resid):
+                        res = ra - lvl.A.matvec_field(z)
+                    z = z + self._vcycle(0, res)
+            else:  # the whole hierarchy is replicated
+                z = self._scatter(self.tail._apply(self._gather(ra)))
+            if (mj, mi) == tuple(r.shape[-2:]):
+                return z
+            out = r.clone()
+            out[:, :mj, :mi] = z  # in place: out is the copy of r made above
+            return out
 
     def _gather(self, r):
-        return all_gather_tiles(r.contiguous(), self.mesh, self.tiling.rows, self.tiling.cols)
+        with span("MGGather"):
+            return all_gather_tiles(r.contiguous(), self.mesh, self.tiling.rows, self.tiling.cols)
 
     def _scatter(self, g):
         (j0, j1), (i0, i1) = self.tiling.patch(self.mesh)
-        return g[..., j0:j1, i0:i1].contiguous()
+        with span("MGScatter"):
+            return g[..., j0:j1, i0:i1].contiguous()
 
     def _vcycle(self, k, r):
         if k == len(self.levels):
             return self._scatter(self.tail._vcycle(0, self._gather(r)))
         lvl = self.levels[k]
-        z = lvl.smoother(r)  # pre-smooth from a zero initial guess
-        res = r - lvl.A.matvec_field(z)
-        zc = self._vcycle(k + 1, _dist_restrict(res, lvl.A))
-        z = z + _dist_prolong(zc, lvl.A)
-        return z + lvl.post(r - lvl.A.matvec_field(z))  # post-smooth
+        names = lvl.spans
+        with span(names.smooth):
+            z = lvl.smoother(r)  # pre-smooth from a zero initial guess
+        with span(names.resid):
+            res = r - lvl.A.matvec_field(z)
+        with span(names.restrict):
+            rc = _dist_restrict(res, lvl.A)
+        zc = self._vcycle(k + 1, rc)
+        with span(names.interp):
+            z = z + _dist_prolong(zc, lvl.A)
+        with span(names.resid):
+            res = r - lvl.A.matvec_field(z)
+        with span(names.smooth):
+            return z + lvl.post(res)  # post-smooth
 
 
 def mg_pc_dist(A: DistStencilOperator, opts=None, max_levels=10, coarse_size=5, smoother="sor",
@@ -485,10 +551,13 @@ def mg_pc_dist(A: DistStencilOperator, opts=None, max_levels=10, coarse_size=5, 
     op = _level_operator(A.planes[..., : active[0], : active[1]].contiguous(), tiling, mesh)
     levels = []
     while len(levels) < n_levels and tiling.min_extent() >= 2:
-        levels.append(MGLevel(op, *_smoothers(op, smoother)))
-        coarse = tiling.coarse()
-        op, tiling = _dist_galerkin(op, coarse), coarse
-    planes = all_gather_tiles(op.planes, mesh, tiling.rows, tiling.cols)
+        names = LevelSpans.of(len(levels))
+        with span(names.setup):
+            levels.append(MGLevel(op, *_smoothers(op, smoother), spans=names))
+            coarse = tiling.coarse()
+            op, tiling = _dist_galerkin(op, coarse), coarse
+    with span("MGGather"):
+        planes = all_gather_tiles(op.planes, mesh, tiling.rows, tiling.cols)
     tail = mg_pc(StencilOperator(planes), max_levels=max_levels - len(levels), coarse_size=coarse_size,
-                 smoother=smoother, cycles=cycles)
+                 smoother=smoother, cycles=cycles, level0=len(levels))
     return DistMGPC(tuple(levels), tail, tiling, active, mesh, cycles)

@@ -14,6 +14,10 @@ tensor or a tuple of tensors). Every stencil matvec goes through
 `StencilOperator`, so on a CUDA device it launches kernel B1. The ILU(0)
 of a stencil operator, with its factors in the planes layout, is
 `solvers/ilu_stencil.py`.
+
+Spans (utils/monitor.py): a SchurPC apply runs under `PCApply.Schur`, its
+set-up (`schur_pc`) under `PCSetUp.Schur`, and `estimate_lmax`, with its
+CPU draw of the start vector, under `PCChebyEigEst`.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from saddle_point_petsc_tpu_torch.solvers.operators import (
     constraint_apply_t,
 )
 from saddle_point_petsc_tpu_torch.utils.device import resolve_device
+from saddle_point_petsc_tpu_torch.utils.monitor import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,22 +153,23 @@ class SchurPC:
         return Bu if self.mesh is None else self.mesh.all_reduce(Bu)
 
     def __call__(self, r):
-        ru, rlam = r
-        Ainv = self.inner_solve
-        if self.fact_type == "diag":
-            # the lambda block uses +(B D^-1 B^T)^-1 = -S_inv, since
-            # S = -B D^-1 B^T is negative definite
-            return (Ainv(ru), -(self.S_inv @ rlam))
-        if self.fact_type == "lower":
-            zu = Ainv(ru)
-            return (zu, self.S_inv @ (rlam - self._B(zu)))
-        if self.fact_type == "upper":
-            zlam = self.S_inv @ rlam
-            return (Ainv(ru - constraint_apply_t(self.Bf, zlam)), zlam)
-        # full: L-D-U application
-        yu = Ainv(ru)
-        zlam = self.S_inv @ (rlam - self._B(yu))
-        return (yu - Ainv(constraint_apply_t(self.Bf, zlam)), zlam)
+        with span("PCApply.Schur"):
+            ru, rlam = r
+            Ainv = self.inner_solve
+            if self.fact_type == "diag":
+                # the lambda block uses +(B D^-1 B^T)^-1 = -S_inv, since
+                # S = -B D^-1 B^T is negative definite
+                return (Ainv(ru), -(self.S_inv @ rlam))
+            if self.fact_type == "lower":
+                zu = Ainv(ru)
+                return (zu, self.S_inv @ (rlam - self._B(zu)))
+            if self.fact_type == "upper":
+                zlam = self.S_inv @ rlam
+                return (Ainv(ru - constraint_apply_t(self.Bf, zlam)), zlam)
+            # full: L-D-U application
+            yu = Ainv(ru)
+            zlam = self.S_inv @ (rlam - self._B(yu))
+            return (yu - Ainv(constraint_apply_t(self.Bf, zlam)), zlam)
 
 
 def schur_pc(A, Bf, inner_solve=None, fact_type="full") -> SchurPC:
@@ -173,15 +179,16 @@ def schur_pc(A, Bf, inner_solve=None, fact_type="full") -> SchurPC:
     constraint rows (m, 2, ny, nx). For a distributed A (one with a mesh)
     both are patches: the m x m partial products are summed over its ranks
     once, here, and the PC keeps the mesh for its B u."""
-    dinv = _inv_diag(A)
-    B2 = Bf.reshape(Bf.shape[0], -1)
-    mesh = getattr(A, "mesh", None)
-    BDB = (B2 * dinv.reshape(-1)) @ B2.transpose(0, 1)
-    if mesh is not None:
-        BDB = mesh.all_reduce(BDB)
-    if inner_solve is None:
-        inner_solve = JacobiPC(dinv)
-    return SchurPC(inner_solve, Bf, inv_small(-BDB), fact_type, mesh)  # S = -B D^-1 B^T, negative definite
+    with span("PCSetUp.Schur"):
+        dinv = _inv_diag(A)
+        B2 = Bf.reshape(Bf.shape[0], -1)
+        mesh = getattr(A, "mesh", None)
+        BDB = (B2 * dinv.reshape(-1)) @ B2.transpose(0, 1)
+        if mesh is not None:
+            BDB = mesh.all_reduce(BDB)
+        if inner_solve is None:
+            inner_solve = JacobiPC(dinv)
+        return SchurPC(inner_solve, Bf, inv_small(-BDB), fact_type, mesh)  # S = -B D^-1 B^T, negative definite
 
 
 # ---------------------------------------------------------------------------
@@ -639,28 +646,29 @@ def estimate_lmax(A, M=None, iters=10, generator=None, template=None):
     """
     if template is None:
         raise ValueError("need a template vector")
-    M = M or IdentityPC()
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    d = krylov.distribution()
-    if d is None:
-        v = _start_vector(template, generator)
-    else:
-        leaves = template if isinstance(template, tuple) else (template,)
-        tiles = A if hasattr(A, "local_patch") else d.mesh
-        layouts = {"patch": (tiles.global_like, tiles.local_patch),
-                   "rows": (d.mesh.global_rows_like, d.mesh.local_rows),
-                   None: (lambda a: a, lambda g: g)}
-        kinds = [layouts[k] for k in d.leaves]
-        draw = _start_vector(tuple(glob(a) for (glob, _), a in zip(kinds, leaves, strict=True)), generator)
-        v = tuple(loc(g).to(a.device).contiguous() for (_, loc), g, a in zip(kinds, draw, leaves))
-        v = v if isinstance(template, tuple) else v[0]
-    lam = None
-    for _ in range(iters):
-        w = M(A(v))
-        lam = krylov.tnorm(w)
-        v = krylov.tscale(1.0 / lam, w)
-    return 1.0 if lam is None else lam.item()
+    with span("PCChebyEigEst"):
+        M = M or IdentityPC()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        d = krylov.distribution()
+        if d is None:
+            v = _start_vector(template, generator)
+        else:
+            leaves = template if isinstance(template, tuple) else (template,)
+            tiles = A if hasattr(A, "local_patch") else d.mesh
+            layouts = {"patch": (tiles.global_like, tiles.local_patch),
+                       "rows": (d.mesh.global_rows_like, d.mesh.local_rows),
+                       None: (lambda a: a, lambda g: g)}
+            kinds = [layouts[k] for k in d.leaves]
+            draw = _start_vector(tuple(glob(a) for (glob, _), a in zip(kinds, leaves, strict=True)), generator)
+            v = tuple(loc(g).to(a.device).contiguous() for (_, loc), g, a in zip(kinds, draw, leaves))
+            v = v if isinstance(template, tuple) else v[0]
+        lam = None
+        for _ in range(iters):
+            w = M(A(v))
+            lam = krylov.tnorm(w)
+            v = krylov.tscale(1.0 / lam, w)
+        return 1.0 if lam is None else lam.item()
 
 
 # ---------------------------------------------------------------------------

@@ -1,20 +1,77 @@
-"""Phase timers and solve summaries (PyTorch twin of
+"""The port's tracing layer: spans on the profiler's clock, one counter
+table, and the -log_view phase timers (the PyTorch side of
 `saddle_point_petsc_tpu.utils.monitor`, PETSc -log_view style).
 
-Phase times are host wall-clock times. PyTorch returns before a CUDA
-device finishes, so a phase that ends in device work passes its output
-as `sync=`: the phase then waits for the device(s) those tensors live on.
+- `span(name)`: a context around a piece of work, named after PETSc's
+  -log_view events (KSPSolve, MatMult, PCApply, PCSetUp, MatAssembly, ...).
+  While a torch profiler is recording it is a
+  `torch.profiler.record_function`: a user annotation in the same trace,
+  on the same clock, as the kernels, copies and runtime calls, so every
+  idle gap of the device falls under the span the host was in. Otherwise
+  it is one shared no-op context, which costs a flag check. The profiler
+  being on is the only switch (`-profile`, or any caller's
+  torch.profiler.profile).
+- `counters`: a plain dict of ints, always on. `count(name, n)` adds,
+  `reset_counters()` clears. The kernel modules count launches
+  (`B1.launches`, `B1.launches.padded`, `B1.launches.float64`, ... B2-B6);
+  parallel/halo.py counts the messages and bytes it posts, and
+  `ProcessMesh` its all_reduce and all_to_all calls and bytes when the
+  mesh has more than one rank.
+- `LogView`: named phases on the host clock (each also a span), with what
+  each phase moved in the counter table. PyTorch returns before a CUDA
+  device finishes, so a phase that ends in device work passes its output
+  as `sync=`: the phase then waits for the device(s) those tensors live on.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import re
 import sys
 import time
 from typing import Dict
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name):
+    """A context naming the work inside it in a running profiler's trace;
+    the shared no-op context when no profiler is recording."""
+    if _profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+counters: Dict[str, int] = {}
+
+
+def count(name, n=1):
+    """Add n to the counter `name`."""
+    counters[name] = counters.get(name, 0) + n
+
+
+def reset_counters():
+    counters.clear()
+
+
+_LAUNCHES = re.compile(r"^B\d\.launches$")
+
+
+def _moved(before, after):
+    """(kernel launches, messages, bytes sent, all_reduces) between two
+    snapshots of the counter table."""
+
+    def d(key):
+        return after.get(key, 0) - before.get(key, 0)
+
+    launches = sum(v - before.get(k, 0) for k, v in after.items() if _LAUNCHES.match(k))
+    messages = d("halo.messages") + d("all_to_all.messages")
+    sent = d("halo.bytes") + d("all_to_all.bytes")
+    return launches, messages, sent, d("all_reduce.calls")
 
 
 @dataclasses.dataclass
@@ -22,16 +79,10 @@ class PhaseStats:
     name: str
     count: int = 0
     total_s: float = 0.0
-    flops: float = 0.0
-    nnz_processed: float = 0.0
-
-    @property
-    def nnz_per_s(self):
-        return self.nnz_processed / self.total_s if self.total_s else 0.0
-
-    @property
-    def gflops(self):
-        return self.flops / self.total_s / 1e9 if self.total_s else 0.0
+    launches: int = 0  # kernel launches (B1-B6)
+    messages: int = 0  # halo and all_to_all messages posted
+    bytes_sent: int = 0
+    reductions: int = 0  # all_reduce calls
 
 
 def _flatten(obj):
@@ -57,58 +108,48 @@ class LogView:
         self.t0 = time.perf_counter()
 
     @contextlib.contextmanager
-    def phase(self, name, flops=0.0, nnz=0.0, sync=None):
-        """Time a block; `sync` names tensors whose devices to wait for at its end."""
+    def phase(self, name, sync=None):
+        """Time a block, a span of the same name; `sync` names tensors whose
+        devices to wait for at its end."""
         st = self.phases.setdefault(name, PhaseStats(name))
+        before = dict(counters)
         t = time.perf_counter()
         try:
-            yield st
+            with span(name):
+                yield st
+                if sync is not None:
+                    synchronize(sync)
         finally:
-            if sync is not None:
-                synchronize(sync)
             st.count += 1
             st.total_s += time.perf_counter() - t
-            st.flops += flops
-            st.nnz_processed += nnz
+            launches, messages, sent, reductions = _moved(before, counters)
+            st.launches += launches
+            st.messages += messages
+            st.bytes_sent += sent
+            st.reductions += reductions
 
     def report(self, file=None):
+        """The phase table: count, seconds, share of the run, and the kernel
+        launches, messages (with their mean length) and all_reduces each
+        phase made (PETSc's Mess, AvgLen and Reduct)."""
         file = file or sys.stdout
         total = time.perf_counter() - self.t0
         print("-" * 78, file=file)
         print(
-            f"{'Phase':<28}{'Count':>6}{'Time (s)':>12}{'%T':>6}"
-            f"{'GFlop/s':>10}{'Gnnz/s':>10}",
+            f"{'Phase':<20}{'Count':>6}{'Time (s)':>12}{'%T':>6}"
+            f"{'Launches':>10}{'Mess':>8}{'AvgLen':>10}{'Reduct':>8}",
             file=file,
         )
         print("-" * 78, file=file)
         for st in self.phases.values():
             pct = 100.0 * st.total_s / total if total else 0.0
+            avg = st.bytes_sent / st.messages if st.messages else 0.0
             print(
-                f"{st.name:<28}{st.count:>6}{st.total_s:>12.4f}{pct:>6.1f}"
-                f"{st.gflops:>10.2f}{st.nnz_per_s / 1e9:>10.3f}",
+                f"{st.name:<20}{st.count:>6}{st.total_s:>12.4f}{pct:>6.1f}"
+                f"{st.launches:>10}{st.messages:>8}{avg:>10.3g}{st.reductions:>8}",
                 file=file,
             )
         print("-" * 78, file=file)
-
-
-def spmv_flops(nnz):
-    """2 flops per stored entry."""
-    return 2.0 * nnz
-
-
-def solve_summary(result, nnz=None, elapsed_s=None):
-    """Structured run summary (its, rnorm, nnz/s) as a dict."""
-    out = {
-        "iterations": int(result.iterations),
-        "rnorm": float(result.rnorm),
-        "rnorm0": float(result.rnorm0),
-        "converged_reason": result.reason_name(),
-    }
-    if nnz is not None and elapsed_s:
-        # 1 SpMV per iteration is the dominant nnz traffic
-        out["nnz_per_s"] = nnz * max(int(result.iterations), 1) / elapsed_s
-        out["elapsed_s"] = elapsed_s
-    return out
 
 
 def residual_history(result):

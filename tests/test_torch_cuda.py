@@ -31,6 +31,7 @@ from saddle_point_petsc_tpu_torch.ops.cuda import bdia, dia, dia_spmm, ell, spmm
 from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator
 from saddle_point_petsc_tpu_torch.solvers import amg, ilu_stencil, multigrid, precond, refine
 from saddle_point_petsc_tpu_torch.solvers.ksp import KSP
+from saddle_point_petsc_tpu_torch.utils import monitor
 from saddle_point_petsc_tpu_torch.utils.options import Options
 
 pytestmark = pytest.mark.gpu
@@ -43,6 +44,11 @@ def dev():
     return torch.device("cuda")
 
 
+def _launches(kernel):
+    """The launches of kernel `kernel` ("B1" .. "B6") since the last reset."""
+    return monitor.counters.get(f"{kernel}.launches", 0)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
 def test_kernel_matches_plain(dev, dtype, tol):
     gen = torch.Generator(device=dev)
@@ -51,9 +57,9 @@ def test_kernel_matches_plain(dev, dtype, tol):
         planes = torch.randn((4, 3, 3, ny, nx), generator=gen, dtype=dtype, device=dev)
         x = torch.randn((2, ny, nx), generator=gen, dtype=dtype, device=dev)
         xp = torch.randn((2, ny + 2, nx + 2), generator=gen, dtype=dtype, device=dev)
-        spmv.reset_launches()
+        monitor.reset_counters()
         y, yp = spmv.stencil_spmv(planes, x), spmv.stencil_spmv_padded(planes, xp)
-        assert spmv.launches == 2
+        assert _launches("B1") == 2
         torch.cuda.synchronize()
         for got, ref in (
             (y, spmv.planes_matvec_field(planes, x)),
@@ -71,9 +77,9 @@ def test_wrapper_rejects_mixed_devices(dev):
 def test_operator_on_card_launches_kernel(dev):
     A = poisson.assemble_poisson(12, 9, dtype=torch.float64, device=dev, body_force="trig").A
     x = torch.randn((2, 10, 13), dtype=torch.float64, device=dev)
-    spmv.reset_launches()
+    monitor.reset_counters()
     y = A(x)
-    assert spmv.launches == 1
+    assert _launches("B1") == 1
     ref = spmv.planes_matvec_field(A.planes, x)
     assert (y - ref).abs().max().item() <= 1e-12 * ref.abs().max().item()
 
@@ -81,9 +87,9 @@ def test_operator_on_card_launches_kernel(dev):
 def test_cli_on_card_matches_cpu(dev):
     argv = ["-problem_type", "saddle", "-body_force", "trig", "-da_grid_x", "17",
             "-da_grid_y", "17", "-dtype", "f64", "-ksp_rtol", "1e-8", "-no_vtk"]
-    spmv.reset_launches()
+    monitor.reset_counters()
     card = cli.run(argv + ["-device", "cuda"])
-    launches = spmv.launches
+    launches = _launches("B1")
     host = cli.run(argv + ["-device", "cpu"])
     assert card.rc == host.rc == 0
     assert launches >= card.result.iterations
@@ -102,9 +108,9 @@ def test_dia_kernel_matches_plain(dev, dtype, tol):
                     (50, (-80, 2, 60)), (9, ())):
         data = torch.randn((len(offs), n), generator=gen, dtype=dtype, device=dev)
         x = torch.randn((n,), generator=gen, dtype=dtype, device=dev)
-        dia.reset_launches()
+        monitor.reset_counters()
         y2, y1 = dia.dia_spmv_2d(data, x, offs), dia.dia_spmv(data, x, offs)
-        assert dia.launches == 2
+        assert _launches("B3") == 2
         ref = dia.dia_spmv_plain(data, x, offs)
         torch.cuda.synchronize()
         for got in (y2, y1):
@@ -124,9 +130,9 @@ def test_bdia_kernel_matches_plain(dev, dtype, tol):
             active = tuple(t for t in triples if rnd.random() < 0.6)
             data = torch.randn((len(offs), b, b, mb), generator=gen, dtype=dtype, device=dev)
             xb = torch.randn((b, mb), generator=gen, dtype=dtype, device=dev)
-            bdia.reset_launches()
+            monitor.reset_counters()
             y = bdia.bdia_spmv_2d(data, xb, offs, active)
-            assert bdia.launches == 1
+            assert _launches("B4") == 1
             ref = bdia.bdia_spmv_plain(data, xb, offs, active)
             torch.cuda.synchronize()
             assert (y - ref).abs().max().item() <= tol * max(ref.abs().max().item(), 1e-300)
@@ -139,10 +145,9 @@ def test_sparse_operators_on_card_launch_kernels(dev):
     A, _ = sparse.csr_to_dia(csr)
     B = sparse.bsr_to_bdia(sparse.csr_to_bsr(csr, 2))
     x = torch.randn((csr.shape[0],), dtype=torch.float64, device=dev)
-    dia.reset_launches()
-    bdia.reset_launches()
+    monitor.reset_counters()
     ya, yb, ref = A(x), B(x), csr(x)
-    assert dia.launches == 1 and bdia.launches == 1
+    assert _launches("B3") == 1 and _launches("B4") == 1
     for got in (ya, yb):
         assert (got - ref).abs().max().item() <= 1e-12 * ref.abs().max().item()
 
@@ -150,9 +155,9 @@ def test_sparse_operators_on_card_launch_kernels(dev):
 def test_cli_gamg_on_card_matches_cpu(dev):
     argv = ["-mat_type", "dia", "-ksp_type", "cg", "-pc_type", "gamg", "-da_grid_x", "33",
             "-da_grid_y", "33", "-dtype", "f64", "-ksp_rtol", "1e-8", "-no_vtk"]
-    dia.reset_launches()
+    monitor.reset_counters()
     card = cli.run(argv + ["-device", "cuda"])
-    launches = dia.launches
+    launches = _launches("B3")
     host = cli.run(argv + ["-device", "cpu"])
     assert card.rc == host.rc == 0
     assert launches >= card.result.iterations
@@ -174,9 +179,9 @@ def test_spmm_kernel_matches_plain(dev, dtype, tol):
         planes = torch.randn((4, 3, 3, ny, nx), generator=gen, dtype=dtype, device=dev)
         for k in (1, 3, 8):
             XT = torch.randn((k, 2, ny, nx), generator=gen, dtype=dtype, device=dev)
-            spmm.reset_launches()
+            monitor.reset_counters()
             Y = spmm.stencil_spmm(planes, XT)
-            assert spmm.launches == 1
+            assert _launches("B2") == 1
             torch.cuda.synchronize()
             assert _within(Y, spmm.planes_matmat_field(planes, XT), tol)
             for j in range(k):
@@ -195,9 +200,9 @@ def test_ell_kernel_matches_plain(dev, dtype, tol):
         cols_t = torch.where(pad, -1, cols_t).to(torch.int32)
         vals_t = torch.randn((width, m), generator=gen, dtype=dtype, device=dev)
         x = torch.randn((m,), generator=gen, dtype=dtype, device=dev)
-        ell.reset_launches()
+        monitor.reset_counters()
         y = ell.ell_spmv(cols_t, vals_t, x)
-        assert ell.launches == 1
+        assert _launches("B5") == 1
         torch.cuda.synchronize()
         assert _within(y, ell.ell_spmv_plain(cols_t, vals_t, x), tol)
 
@@ -246,10 +251,10 @@ def test_dia_spmm_kernel_matches_plain(dev, dtype, layout, path):
                     with pytest.raises(ValueError):
                         dia_spmm._launch(data, X, offs, path=path)
                     continue
-                dia_spmm.reset_launches()
+                monitor.reset_counters()
                 Y = dia_spmm.dia_spmm(data, X, offs) if path is None else dia_spmm._launch(
                     data, X, offs, path=path)
-                assert dia_spmm.launches == 1 and (k == 1 or Y.stride() == X.stride())
+                assert _launches("B6") == 1 and (k == 1 or Y.stride() == X.stride())
                 torch.cuda.synchronize()
                 assert torch.equal(Y, dia_spmm.dia_spmm_plain(data, X, offs)), (n, offs, k)
                 for j in range(k):
@@ -280,14 +285,14 @@ def test_mat_solve_on_card_launches_kernels(dev, fmt):
     per iteration at least, and matches the same solve on the CPU."""
     if fmt == "stencil":
         prob = poisson.assemble_poisson(24, 24, dtype=torch.float64, device=dev)
-        A, f, counter = prob.A, prob.f, spmm
+        A, f, kernel = prob.A, prob.f, "B2"
     else:
         csr, f, _, _ = poisson.assemble_poisson_csr(24, 24, device=dev)
-        A, counter = sparse.csr_to_dia(csr)[0], dia_spmm
+        A, kernel = sparse.csr_to_dia(csr)[0], "B6"
     B = torch.stack([f, 2.0 * f, f * f])
-    counter.reset_launches()
+    monitor.reset_counters()
     _, card = _mat_solve(A, B, ["-pc_type", "jacobi"])
-    launches = counter.launches
+    launches = _launches(kernel)
     A_cpu = (StencilOperator(A.planes.cpu()) if fmt == "stencil"
              else sparse.DIA(A.data.cpu(), A.offsets, A.shape))
     _, host = _mat_solve(A_cpu, B.cpu(), ["-pc_type", "jacobi"])
@@ -304,17 +309,16 @@ def test_gamg_on_card_launches_ell_kernel(dev):
     csr, f, _, _ = poisson.assemble_poisson_csr(48, 48, device=dev)
     A = sparse.csr_to_dia(csr)[0]
     B = torch.stack([f, 2.0 * f, f * f])
-    for mod in (ell, dia, dia_spmm):
-        mod.reset_launches()
+    monitor.reset_counters()
     ksp, res = _mat_solve(A, B, ["-pc_type", "gamg", "-pc_gamg_coarse_eq_limit", "50"])
     assert sum(isinstance(lvl.A, amg._EllOp) for lvl in ksp.M.levels) == 4
-    assert ell.launches > 0 and dia.launches > 0 and dia_spmm.launches >= res.iterations
+    assert _launches("B5") > 0 and _launches("B3") > 0 and _launches("B6") >= res.iterations
     assert res.converged_reason.tolist() == [2, 2, 2] and abs(res.iterations - 8) <= 1
     ell_lvl = next(lvl.A for lvl in ksp.M.levels if isinstance(lvl.A, amg._EllOp))
     x = torch.randn((ell_lvl.ell.shape[1],), dtype=torch.float64, device=dev)
-    ell.reset_launches()
+    monitor.reset_counters()
     y = ell_lvl(x)
-    assert ell.launches == 1
+    assert _launches("B5") == 1
     assert _within(y, ell.ell_spmv_plain(ell_lvl.ell.cols_t, ell_lvl.ell.vals_t, x), 1e-12)
 
 
@@ -331,12 +335,12 @@ def test_vcycle_on_card_matches_cpu(dev, dtype, tol, smoother):
     A_cpu = StencilOperator(A.planes.cpu())
     r = torch.randn((2, 33, 33), dtype=dtype, device=dev)
     M = multigrid.mg_pc(A, smoother=smoother)
-    spmv.reset_launches()
+    monitor.reset_counters()
     z = M(r)
-    assert spmv.launches >= 2 * len(M.levels)
-    spmv.reset_launches()
+    assert _launches("B1") >= 2 * len(M.levels)
+    monitor.reset_counters()
     z_cpu = multigrid.mg_pc(A_cpu, smoother=smoother)(r.cpu())
-    assert spmv.launches == 0
+    assert _launches("B1") == 0
     assert _within(z.cpu(), z_cpu, tol)
 
 
@@ -345,12 +349,12 @@ def test_vcycle_on_card_matches_cpu(dev, dtype, tol, smoother):
 def test_sor_on_card_matches_cpu(dev, dtype, tol, order):
     A = poisson.assemble_poisson(20, 13, dtype=dtype, device=dev, body_force="trig").A
     r = torch.randn((2, 14, 21), dtype=dtype, device=dev)
-    spmv.reset_launches()
+    monitor.reset_counters()
     z = precond.sor(A, sweeps=2, order=order)(r)
-    assert spmv.launches == 2 * (4 if order == "symmetric" else 2)
-    spmv.reset_launches()
+    assert _launches("B1") == 2 * (4 if order == "symmetric" else 2)
+    monitor.reset_counters()
     z_cpu = precond.sor(StencilOperator(A.planes.cpu()), sweeps=2, order=order)(r.cpu())
-    assert spmv.launches == 0
+    assert _launches("B1") == 0
     assert _within(z.cpu(), z_cpu, tol)
 
 
@@ -364,10 +368,10 @@ def test_refinement_cycle_on_card_matches_cpu(dev):
     for device in (dev, torch.device("cpu")):
         planes = prob.A.planes.to(device)
         A32 = StencilOperator(planes.float())
-        spmv.reset_launches()
+        monitor.reset_counters()
         res = refine.solve_refined(A32, prob.f.to(device), refine.inner_cg(A32, M=precond.jacobi(A32), rtol=0.0,
                                                                             maxiter=10), max_cycles=1)
-        out.append((res, spmv.launches))
+        out.append((res, _launches("B1")))
     (card, n_card), (host, n_host) = out
     assert n_card > card.inner_iterations == 10 and n_host == 0
     assert card.cycles == host.cycles == 1 and card.x.dtype == torch.float64
@@ -389,12 +393,12 @@ def test_stencil_ilu_on_card_matches_cpu(dev, dtype, tol):
     r = torch.randn((2, 14, 21), dtype=dtype, device=dev)
     M = ilu_stencil.stencil_ilu0(A, sweeps=6)
     assert M.Lp.is_cuda and M.Lp.dtype == dtype
-    spmv.reset_launches()
+    monitor.reset_counters()
     z = M(r)
-    assert spmv.launches == 12
-    spmv.reset_launches()
+    assert _launches("B1") == 12
+    monitor.reset_counters()
     z_cpu = ilu_stencil.stencil_ilu0(A_cpu, sweeps=6)(r.cpu())
-    assert spmv.launches == 0
+    assert _launches("B1") == 0
     assert _within(z.cpu(), z_cpu, tol)
     csr = poisson.assemble_poisson_csr(20, 13, dtype=dtype, device=dev)[0]
     csr_cpu = poisson.assemble_poisson_csr(20, 13, dtype=dtype, device="cpu")[0]
@@ -448,10 +452,10 @@ def test_dist_matvec_world_of_one_on_card(nccl_world, overlap):
     xp = halo.halo_exchange_1phase(x, nccl_world)
     assert torch.equal(xp, torch.nn.functional.pad(x, (1, 1, 1, 1)))
     assert torch.equal(halo.halo_add(xp, nccl_world), x)
-    spmv.reset_launches()
+    monitor.reset_counters()
     y = A(x) if overlap else A.matmat_field(x[None])[0]
-    entry = "stencil_spmv" if overlap else "stencil_spmv_padded"
-    assert spmv.launches == spmv.entry_launches[entry] == 1
+    entry = "B1.launches.local" if overlap else "B1.launches.padded"
+    assert _launches("B1") == monitor.counters[entry] == monitor.counters["B1.launches.float32"] == 1
     assert _within(y.cpu(), serial.A(x).cpu(), 1e-5)
 
 
@@ -464,10 +468,10 @@ def test_dist_cli_world_of_one_on_card(nccl_world):
 
     common = ["-device", "cuda", "-problem_type", "saddle", "-body_force", "trig", "-da_grid_x", "65",
               "-da_grid_y", "65", "-dtype", "f32", "-ksp_rtol", "1e-5", "-no_vtk"]
-    spmv.reset_launches()
+    monitor.reset_counters()
     d = cli.run(common + ["-dist", "-fieldsplit_inner_pc_type", "bjacobi", "-sub_pc_type", "chebyshev",
                           "-pc_bjacobi_local_its", "4"])
-    launches = spmv.launches
+    launches = _launches("B1")
     s = cli.run(common + ["-fieldsplit_inner_pc_type", "chebyshev", "-pc_chebyshev_esteig",
                           "-pc_chebyshev_its", "4"])
     assert dist.is_initialized()
@@ -509,20 +513,19 @@ def test_dist_aij_world_of_one_on_card(nccl_world, dtype, tol, bands):
     cpu = dataclasses.replace(nccl_world, device=torch.device("cpu"))
     A_cpu = dist_csr.dist_aij_from_scipy(sparse.csr_to_scipy(csr), cpu, dtype=dtype, dia=bands)
     x = torch.randn((A.n_pad,), dtype=dtype, device=nccl_world.device)
-    for mod in (dia, ell, dia_spmm):
-        mod.reset_launches()
+    monitor.reset_counters()
     y = A.matvec(x)
-    assert (dia.launches, ell.launches) == ((1, 0) if bands == "auto" else (0, 1))
+    assert (_launches("B3"), _launches("B5")) == ((1, 0) if bands == "auto" else (0, 1))
     assert _within(y.cpu(), csr.matvec(x).cpu(), tol) and _within(y.cpu(), A_cpu.matvec(x.cpu()), tol)
     X = torch.randn((A.n_pad, 4), dtype=dtype, device=nccl_world.device)
-    dia_spmm.reset_launches()
+    monitor.reset_counters()
     Y = A.matmat(X)
-    assert dia_spmm.launches == (1 if bands == "auto" else 0)
+    assert _launches("B6") == (1 if bands == "auto" else 0)
     assert _within(Y.cpu(), A_cpu.matmat(X.cpu()), tol)
     M, M_cpu = dist_csr.dist_aij_ilu0(A, sweeps=6), dist_csr.dist_aij_ilu0(A_cpu, sweeps=6)
-    ell.reset_launches()
+    monitor.reset_counters()
     z = M(x)
-    assert ell.launches == 12
+    assert _launches("B5") == 12
     assert _within(z.cpu(), M_cpu(x.cpu()), tol)
 
 
@@ -532,9 +535,9 @@ def test_dist_aij_cli_world_of_one_on_card(nccl_world):
     CG + Jacobi), B3 launched every iteration."""
     common = ["-device", "cuda", "-mat_type", "aij", "-da_grid_x", "65", "-da_grid_y", "65", "-dtype", "f64",
               "-ksp_type", "cg", "-ksp_rtol", "1e-8", "-no_vtk"]
-    dia.reset_launches()
+    monitor.reset_counters()
     d = cli.run(common + ["-dist"])
-    launches = dia.launches
+    launches = _launches("B3")
     s = cli.run(common)
     assert d.rc == s.rc == 0 and d.result.iterations == s.result.iterations
     assert launches >= d.result.iterations

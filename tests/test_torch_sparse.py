@@ -29,6 +29,7 @@ from saddle_point_petsc_tpu_torch.models import fem as tfem
 from saddle_point_petsc_tpu_torch.models import poisson as tpoisson
 from saddle_point_petsc_tpu_torch.ops import sparse as tsp
 from saddle_point_petsc_tpu_torch.ops.cuda import bdia, dia
+from saddle_point_petsc_tpu_torch.utils import monitor
 
 torch.set_num_threads(1)
 
@@ -305,12 +306,11 @@ def test_wrappers_on_cpu_take_plain_versions():
     data, x = torch.tensor(rng.standard_normal((3, 11))), torch.tensor(rng.standard_normal(11))
     bdata, xb = torch.tensor(rng.standard_normal((3, 2, 2, 11))), torch.tensor(rng.standard_normal((2, 11)))
     active = ((0, 0, 1), (2, 1, 0), (1, 1, 1))
-    dia.reset_launches()
-    bdia.reset_launches()
+    monitor.reset_counters()
     assert torch.equal(dia.dia_spmv_2d(data, x, offs), dia.dia_spmv_plain(data, x, offs))
     assert torch.equal(dia.dia_spmv(data, x, offs), dia.dia_spmv_plain(data, x, offs))
     assert torch.equal(bdia.bdia_spmv_2d(bdata, xb, offs, active), bdia.bdia_spmv_plain(bdata, xb, offs, active))
-    assert dia.launches == 0 and bdia.launches == 0
+    assert monitor.counters.get("B3.launches", 0) == 0 and monitor.counters.get("B4.launches", 0) == 0
 
 
 @pytest.mark.parametrize(

@@ -20,6 +20,7 @@ from saddle_point_petsc_tpu.ops.pallas.spmv import (
 from saddle_point_petsc_tpu_torch.models import poisson as tpoisson
 from saddle_point_petsc_tpu_torch.ops import stencil as tst
 from saddle_point_petsc_tpu_torch.ops.cuda import spmv
+from saddle_point_petsc_tpu_torch.utils import monitor
 
 torch.set_num_threads(1)
 
@@ -124,13 +125,13 @@ def test_wrapper_on_cpu_takes_plain_version(padded):
     planes = torch.tensor(rng.standard_normal((4, 3, 3, 6, 5)))
     shape = (2, 8, 7) if padded else (2, 6, 5)
     x = torch.tensor(rng.standard_normal(shape))
-    spmv.reset_launches()
+    monitor.reset_counters()
     if padded:
         y, ref = spmv.stencil_spmv_padded(planes, x), spmv.planes_matvec_padded(planes, x)
     else:
         y, ref = spmv.stencil_spmv(planes, x), spmv.planes_matvec_field(planes, x)
     assert torch.equal(y, ref)
-    assert spmv.launches == 0
+    assert monitor.counters.get("B1.launches", 0) == 0
 
 
 @pytest.mark.parametrize(

@@ -6,8 +6,7 @@ library API's device default.
 - `utils/native.py`: `rcm`, `aggregate`, `coo_to_csr`,
   `lower_solve_unit` and `upper_solve` give the JAX module's arrays
   exactly (the same C++ functions, compiled twice); the port's library is
-  built under its own `csrc/_build/`. `monitor.spmv_flops` is the JAX
-  one's count.
+  built under its own `csrc/_build/`.
 - The library API defaults to the CUDA card: without one, every entry
   point that makes tensors raises unless it is given `device="cpu"`.
 """
@@ -17,14 +16,12 @@ import scipy.sparse as sps
 import torch
 
 from saddle_point_petsc_tpu.models import poisson as jpoisson
-from saddle_point_petsc_tpu.utils import monitor as jmonitor
 from saddle_point_petsc_tpu.utils import native as jnative
 from saddle_point_petsc_tpu.utils import options as joptions
 from saddle_point_petsc_tpu_torch.models import poisson as tpoisson
 from saddle_point_petsc_tpu_torch.models import saddle as tsaddle
 from saddle_point_petsc_tpu_torch.ops import sparse as tsp
 from saddle_point_petsc_tpu_torch.csrc import BUILD_DIR
-from saddle_point_petsc_tpu_torch.utils import monitor as tmonitor
 from saddle_point_petsc_tpu_torch.utils import native as tnative
 from saddle_point_petsc_tpu_torch.utils import options as toptions
 from saddle_point_petsc_tpu_torch.utils.device import resolve_device
@@ -166,11 +163,6 @@ def test_native_triangular_solves_match_jax(graph):
         tnative.upper_solve(U.indptr[:-1], U.indices, U.data, y)
     with pytest.raises(ValueError, match="column indices"):
         tnative.lower_solve_unit(L.indptr, L.indices + n, L.data, b)
-
-
-@pytest.mark.parametrize("nnz", [0, 7, 2_101_250 * 18])
-def test_spmv_flops_matches_jax(nnz):
-    assert tmonitor.spmv_flops(nnz) == jmonitor.spmv_flops(nnz) == 2.0 * nnz
 
 
 def test_native_builds_in_port_tree():
