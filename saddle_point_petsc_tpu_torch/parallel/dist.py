@@ -4,11 +4,13 @@
 A DMDA over torch.distributed: the global node grid is block-partitioned
 over a `ProcessMesh`, one rank per patch, and every step is SPMD:
 
-- assembly: each rank builds the element matrices of the elements whose
-  lower-left node it owns and folds the edge contributions onto its
-  neighbours with `halo_add` (MatAssembly's stash-and-ship,
-  DMLocalToGlobal with ADD_VALUES); neighbour masks come from
-  `halo_exchange`.
+- assembly: each rank sums the element matrices, loads and constraint
+  integrals of the elements whose lower-left node it owns into padded
+  accumulators (on the card kernel FE, `ops.cuda.assembly.q1_assemble`;
+  on the CPU its plain version, the batched products of models/fem.py)
+  and folds the edge contributions onto its neighbours with `halo_add`
+  (MatAssembly's stash-and-ship, DMLocalToGlobal with ADD_VALUES);
+  neighbour masks come from `halo_exchange`.
 - SpMV: the single-phase halo exchange posted first, kernel B1 on the
   local patch with zero ghosts while it is in flight, then four thin edge
   corrections (`_local_matvec`). SpMM (`matmat_field`): one exchange for
@@ -21,15 +23,17 @@ over a `ProcessMesh`, one rank per patch, and every step is SPMD:
 Grids that do not divide the mesh are padded with inactive nodes (identity
 rows, zero right-hand side), harmless to Krylov and to iteration counts.
 Element coordinates come from the same `torch.linspace` as the serial
-assembly (models/fem.py), sliced to the rank's elements, so a world of one
-assembles the serial operator bit for bit.
+assembly (models/fem.py), sliced to the rank's elements, so on the CPU a
+world of one assembles the serial operator bit for bit; on the card
+kernel FE sums in its own order, within rounding of the serial operator.
 
 Spans (utils/monitor.py): `assemble_poisson_dist` and
-`assemble_saddle_dist` run under `MatAssembly`; in it, the element
-matrices and loads under `FEElementMatrices` and `FEElementRHS`
-(models/fem.py), their sum into the stencil planes under `MatSetValues`,
-the Dirichlet mask and elimination under `FEBoundary`, the constraint rows
-under `FEConstraints`, and the ghost folds under `HaloAdd`.
+`assemble_saddle_dist` run under `MatAssembly`; in it, on the card, the
+kernel's launch under `FEAssemble`; on the CPU, the element matrices and
+loads under `FEElementMatrices` and `FEElementRHS` (models/fem.py), their
+sum into the stencil planes under `MatSetValues` and the constraint
+integrals under `FEConstraints`; then the ghost folds under `HaloAdd` and
+the Dirichlet mask and elimination under `FEBoundary`.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from saddle_point_petsc_tpu_torch.models import fem
+from saddle_point_petsc_tpu_torch.ops.cuda.assembly import q1_assemble
 from saddle_point_petsc_tpu_torch.ops.cuda.spmv import stencil_spmv, stencil_spmv_padded
 from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator
 from saddle_point_petsc_tpu_torch.parallel.halo import (
@@ -272,13 +277,20 @@ class DistSaddleOperator(SaddleOperator):
 # ---------------------------------------------------------------------------
 
 
-def _local_elements(grid: DistGrid, dtype, device):
-    """Corner coordinates (ej, ei, 4, 2) of this rank's elements: those
-    whose lower-left node it owns, inside the true grid."""
+def _local_axes(grid: DistGrid, dtype, device):
+    """Node coordinates (xs, ys) of this rank's elements, those whose
+    lower-left node it owns inside the true grid: ei + 1 and ej + 1 values
+    of the serial assembly's `torch.linspace`."""
     ej = max(0, min(grid.my, grid.ney - grid.jlo))
     ei = max(0, min(grid.mx, grid.nex - grid.ilo))
     xs = torch.linspace(0.0, 1.0, grid.nex + 1, dtype=dtype, device=device)[grid.ilo : grid.ilo + ei + 1]
     ys = torch.linspace(0.0, 1.0, grid.ney + 1, dtype=dtype, device=device)[grid.jlo : grid.jlo + ej + 1]
+    return xs, ys
+
+
+def _local_elements(xs, ys):
+    """Corner coordinates (ej, ei, 4, 2) of the elements spanned by the
+    node coordinates xs and ys."""
     Y, X = torch.meshgrid(ys, xs, indexing="ij")
     return fem.element_corner_coords(torch.stack([X, Y], dim=-1))
 
@@ -294,32 +306,89 @@ def _scatter_nodes(ev, my, mx):
     return out
 
 
+def _planes_plain(corners, my, mx):
+    ej, ei = corners.shape[:2]
+    kb = fem.element_stiffness(corners).reshape(ej, ei, 4, 2, 4, 2)
+    with span("MatSetValues"):
+        Wp = kb.new_zeros((4, 3, 3, my + 2, mx + 2))
+        for a, (aj, ai) in enumerate(_NODE_OFF):
+            for b, (bj, bi) in enumerate(_NODE_OFF):
+                contrib = kb[:, :, a, :, b, :].permute(2, 3, 0, 1).reshape(4, ej, ei)
+                # in place: Wp is the fresh accumulator made above
+                Wp[:, bj - aj + 1, bi - ai + 1, 1 + aj : 1 + aj + ej, 1 + ai : 1 + ai + ei] += contrib
+    return Wp
+
+
+def _load_plain(corners, my, mx, body_force):
+    ej, ei = corners.shape[:2]
+    bf = fem.BODY_FORCES[body_force] if isinstance(body_force, str) else body_force
+    return _scatter_nodes(fem.element_rhs(corners, bf).reshape(ej, ei, 4, 2), my, mx)
+
+
+def _rows_plain(corners, my, mx):
+    from saddle_point_petsc_tpu_torch.models.saddle import default_constraints
+
+    with span("FEConstraints"):
+        xi, w = fem.gauss_quadrature_q1(corners.dtype, corners.device)
+        ni = fem.shape_q1(xi)
+        _, det = fem.grad_shape_physical(fem.grad_shape_q1(xi), corners[..., None, :, :])
+        xp = ni @ corners  # (ej, ei, gp, 2)
+        rows = []
+        for fn in default_constraints():
+            wx, wy = fn(xp[..., 0], xp[..., 1])
+            be = ni.transpose(0, 1) @ ((w * det)[..., None] * torch.stack([wx, wy], dim=-1))
+            rows.append(_scatter_nodes(be, my, mx))
+        return torch.stack(rows)
+
+
+def _accumulators_plain(xs, ys, my, mx, body_force=None, planes=True, rows=False):
+    """The plain version of kernel FE: the element matrices, loads and
+    constraint integrals of every element as batched products
+    (models/fem.py), then their sum onto the padded nodes, element corner
+    by element corner. (Wp, load, Bp), each None where not asked for; runs
+    on the inputs' device."""
+    corners = _local_elements(xs, ys)
+    return (_planes_plain(corners, my, mx) if planes else None,
+            None if body_force is None else _load_plain(corners, my, mx, body_force),
+            _rows_plain(corners, my, mx) if rows else None)
+
+
+def _accumulators(grid: DistGrid, dtype, body_force=None, planes=True, rows=False):
+    """This rank's padded accumulators (Wp (4, 3, 3, my + 2, mx + 2), load
+    (2, ...), Bp (4, 2, ...)), each None where not asked for: on the card
+    one launch of kernel FE, which computes a named body force itself (the
+    load of a callable one comes from the batched products); on the CPU
+    the plain version."""
+    my, mx = grid.my, grid.mx
+    xs, ys = _local_axes(grid, dtype, grid.mesh.device)
+    if not xs.is_cuda:
+        return _accumulators_plain(xs, ys, my, mx, body_force, planes, rows)
+    named = body_force if body_force is None or isinstance(body_force, str) else None
+    with span("FEAssemble"):
+        Wp, load, Bp = q1_assemble(xs, ys, my, mx, named, planes, rows)
+    if named is None and body_force is not None:
+        load = _load_plain(_local_elements(xs, ys), my, mx, body_force)
+    return Wp, load, Bp
+
+
 def assemble_poisson_dist(grid: DistGrid, dtype=torch.float64, body_force="constant"):
     """Distributed assembly of the boundary-eliminated vector-Poisson
     system on the mesh's device: per-rank element batches, `halo_add`
     ghost accumulation, symmetric elimination with neighbour masks.
     Returns (A: DistStencilOperator, f, mask), each this rank's patch."""
     with span("MatAssembly"):
-        return _assemble_poisson(grid, dtype, body_force)
+        return _assemble(grid, dtype, body_force, constraints=False)[:3]
 
 
-def _assemble_poisson(grid: DistGrid, dtype, body_force):
+def _assemble(grid: DistGrid, dtype, body_force, constraints):
+    """(A, f, mask, Bf): Bf the constraint rows, or None unless
+    `constraints`."""
     mesh, my, mx = grid.mesh, grid.my, grid.mx
     dev = mesh.device
-    corners = _local_elements(grid, dtype, dev)
-    ej, ei = corners.shape[:2]
-    kb = fem.element_stiffness(corners).reshape(ej, ei, 4, 2, 4, 2)
-    with span("MatSetValues"):
-        Wp = torch.zeros((4, 3, 3, my + 2, mx + 2), dtype=dtype, device=dev)
-        for a, (aj, ai) in enumerate(_NODE_OFF):
-            for b, (bj, bi) in enumerate(_NODE_OFF):
-                contrib = kb[:, :, a, :, b, :].permute(2, 3, 0, 1).reshape(4, ej, ei)
-                # in place: Wp is the fresh accumulator made above
-                Wp[:, bj - aj + 1, bi - ai + 1, 1 + aj : 1 + aj + ej, 1 + ai : 1 + ai + ei] += contrib
-    del kb
+    Wp, load, Bp = _accumulators(grid, dtype, body_force, rows=constraints)
     W = halo_add(Wp, mesh)
-    bf = fem.BODY_FORCES[body_force] if isinstance(body_force, str) else body_force
-    f = halo_add(_scatter_nodes(fem.element_rhs(corners, bf).reshape(ej, ei, 4, 2), my, mx), mesh)
+    del Wp
+    f = halo_add(load, mesh)
     with span("FEBoundary"):
         # masks: the Dirichlet boundary of the true grid, plus the padding nodes
         nyn, nxn = grid.ney + 1, grid.nex + 1
@@ -338,35 +407,28 @@ def _assemble_poisson(grid: DistGrid, dtype, body_force):
         W[3, 1, 1] = torch.where(mask, 1.0, W[3, 1, 1])
         f = torch.where(mask, 0.0, f)
     A = DistStencilOperator(W.contiguous(), mesh, active_shape=(nyn, nxn))
-    return A, f.contiguous(), mask
+    Bf = None if Bp is None else _constraint_rows(Bp, mask, mesh)
+    return A, f.contiguous(), mask, Bf
+
+
+def _constraint_rows(Bp, mask, mesh):
+    """The padded constraint accumulators (4, 2, my + 2, mx + 2) folded
+    onto their owners, Dirichlet columns zeroed."""
+    return torch.where(mask, 0.0, halo_add(Bp, mesh)).contiguous()
 
 
 def assemble_constraints_dist(grid: DistGrid, mask, dtype=torch.float64):
     """Distributed constraint rows -> this rank's (4, 2, my, mx) patch: the
     functionals of models/saddle.py, assembled per rank with `halo_add`."""
-    from saddle_point_petsc_tpu_torch.models.saddle import default_constraints
-
-    with span("FEConstraints"):
-        mesh, my, mx = grid.mesh, grid.my, grid.mx
-        corners = _local_elements(grid, dtype, mesh.device)
-        xi, w = fem.gauss_quadrature_q1(dtype, mesh.device)
-        ni = fem.shape_q1(xi)
-        _, det = fem.grad_shape_physical(fem.grad_shape_q1(xi), corners[..., None, :, :])
-        xp = ni @ corners  # (ej, ei, gp, 2)
-        rows = []
-        for fn in default_constraints():
-            wx, wy = fn(xp[..., 0], xp[..., 1])
-            be = ni.transpose(0, 1) @ ((w * det)[..., None] * torch.stack([wx, wy], dim=-1))
-            rows.append(halo_add(_scatter_nodes(be, my, mx), mesh))
-        return torch.where(mask, 0.0, torch.stack(rows)).contiguous()
+    _, _, Bp = _accumulators(grid, dtype, planes=False, rows=True)
+    return _constraint_rows(Bp, mask, grid.mesh)
 
 
 def assemble_saddle_dist(grid: DistGrid, dtype=torch.float64, body_force="trig"):
     """Distributed KKT system: (K, (f, g), mask), with K's planes, Bf and f
     this rank's patches and g replicated (BASELINE configs 4-5)."""
     with span("MatAssembly"):
-        A, f, mask = _assemble_poisson(grid, dtype, body_force)
-        Bf = assemble_constraints_dist(grid, mask, dtype)
+        A, f, mask, Bf = _assemble(grid, dtype, body_force, constraints=True)
         g = torch.zeros((Bf.shape[0],), dtype=dtype, device=grid.mesh.device)
         return DistSaddleOperator(A, Bf), (f, g), mask
 

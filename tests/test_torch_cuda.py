@@ -17,7 +17,11 @@ bounds as B1. KSPMatSolve on the card against the CPU: iterations +-1
 (batched dot products reduce in another order on the card), x to 1e-9.
 Multigrid, SOR, ILU(0) and one refinement cycle on the card against the
 same call on CPU tensors: 1e-12 * max|y| in f64, 1e-5 * max|y| in f32 (the
-V-cycle and the refinement's inner solve run in f32).
+V-cycle and the refinement's inner solve run in f32). Kernel FE (the -dist
+assembly) against its plain version, and the -dist assembly against the
+serial one: in f64 planes to 1e-12, loads and constraint rows to 1e-12 of
+their largest entry; 4 ulp of the largest entry in f32 (the batched
+products sum in another order).
 """
 import random
 
@@ -438,16 +442,18 @@ def test_process_mesh_default_device_is_the_card(nccl_world):
 @pytest.mark.parametrize("overlap", [True, False], ids=["overlap", "padded"])
 def test_dist_matvec_world_of_one_on_card(nccl_world, overlap):
     """Both forms of the distributed matvec in a world of one on the card:
-    the serial B1 result (to B1's own bounds), through B1's local entry
-    (the operator's matvec, overlap form) or its padded entry (one field
-    through `matmat_field`), one launch each; the halo exchange and
-    halo_add against zero padding and cropping."""
+    the assembly within 4 ulp of the serial one (kernel FE against the
+    batched products), the serial B1 result (to B1's own bounds), through
+    B1's local entry (the operator's matvec, overlap form) or its padded
+    entry (one field through `matmat_field`), one launch each; the halo
+    exchange and halo_add against zero padding and cropping."""
     from saddle_point_petsc_tpu_torch.parallel import dist as pdist
     from saddle_point_petsc_tpu_torch.parallel import halo
 
     A, f, _ = pdist.assemble_poisson_dist(pdist.DistGrid.create(40, 27, nccl_world), dtype=torch.float32)
     serial = poisson.assemble_poisson(40, 27, dtype=torch.float32, device=nccl_world.device)
-    assert torch.equal(A.planes, serial.A.planes) and torch.equal(f, serial.f)
+    # kernel FE sums in its own order: within rounding of the serial operator
+    assert _fe_within(A.planes, serial.A.planes, torch.float32) and _fe_within(f, serial.f, torch.float32, "load")
     x = torch.randn((2, 28, 41), dtype=torch.float32, device=nccl_world.device)
     xp = halo.halo_exchange_1phase(x, nccl_world)
     assert torch.equal(xp, torch.nn.functional.pad(x, (1, 1, 1, 1)))
@@ -463,7 +469,10 @@ def test_dist_cli_world_of_one_on_card(nccl_world):
     """The CLI's -dist saddle route with BASELINE config 4's solver on the
     card, in the world of one (reused, not destroyed by the run), against
     the serial route with the PC the 1 x 1 mesh reduces to: the same
-    iteration count and solution, B1 launched every iteration."""
+    iteration count and solution, B1 launched every iteration. The routes'
+    operators differ by rounding (kernel FE against the batched products,
+    4 ulp in f32), which f32 MINRES carries into x: 45 iterations each and
+    max|dx| / max|x| = 1.83e-6 on an H100, held to 2.5e-6."""
     import torch.distributed as dist
 
     common = ["-device", "cuda", "-problem_type", "saddle", "-body_force", "trig", "-da_grid_x", "65",
@@ -477,7 +486,116 @@ def test_dist_cli_world_of_one_on_card(nccl_world):
     assert dist.is_initialized()
     assert d.rc == s.rc == 0 and d.result.iterations == s.result.iterations
     assert launches >= d.result.iterations
-    assert _within(d.result.x[0].cpu(), s.result.x[0].cpu(), 1e-6)
+    assert _within(d.result.x[0].cpu(), s.result.x[0].cpu(), 2.5e-6)
+
+
+# kernel FE (csrc/q1_assembly.cu) against its plain version: one rank's
+# patches of partitioned grids, (nex, ney, (py, px), (pj, pi)), as in
+# tests/test_torch_fe_assembly.py, and BASELINE config 4's grid in a world of one
+FE_PATCHES = {
+    "unpadded": (15, 15, (2, 2), (0, 0)),
+    "padded": (16, 13, (2, 2), (1, 1)),
+    "no_elements": (12, 9, (1, 4), (0, 3)),
+    "config4": (703, 703, (1, 1), (0, 0)),
+}
+
+
+def _fe_within(got, want, dtype, label="planes"):
+    """Kernel FE against the batched products, which sum in another order:
+    in f64 1e-12 absolute for the planes (entries of order 1), 1e-12 of
+    max|want| for loads and constraint rows (entries of order h^2); 4 ulp
+    of max|want| in f32."""
+    scale = want.abs().max().item()
+    if dtype == torch.float32:
+        tol = 4 * torch.finfo(torch.float32).eps * scale
+    else:
+        tol = 1e-12 if label == "planes" else 1e-12 * scale
+    return got.shape == want.shape and got.dtype == want.dtype and (got - want).abs().max().item() <= tol
+
+
+def _fe_patch(spec, dtype, dev):
+    """(xs, ys, my, mx) of the patch (nex, ney, (py, px), (pj, pi))."""
+    import types
+
+    from saddle_point_petsc_tpu_torch.parallel import dist as pdist
+
+    nex, ney, (py, px), (pj, pi) = spec
+    grid = pdist.DistGrid.create(nex, ney, types.SimpleNamespace(py=py, px=px, pj=pj, pi=pi))
+    return (*pdist._local_axes(grid, dtype, dev), grid.my, grid.mx)
+
+
+@pytest.mark.parametrize("patch", list(FE_PATCHES))
+@pytest.mark.parametrize("force", ["constant", "trig"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_fe_kernel_matches_plain(dev, patch, force, dtype):
+    """In f64 planes to 1e-12, loads and rows to 1e-12 of their largest
+    entry; 4 ulp of the largest entry in f32; one launch, counted by type."""
+    from saddle_point_petsc_tpu_torch.ops.cuda import assembly
+    from saddle_point_petsc_tpu_torch.parallel import dist as pdist
+
+    xs, ys, my, mx = _fe_patch(FE_PATCHES[patch], dtype, dev)
+    monitor.reset_counters()
+    got = assembly.q1_assemble(xs, ys, my, mx, force=force, rows=True)
+    torch.cuda.synchronize()
+    assert monitor.counters["FE.launches"] == monitor.counters[f"FE.launches.{str(dtype)[6:]}"] == 1
+    want = pdist._accumulators_plain(xs, ys, my, mx, body_force=force, rows=True)
+    for label, g, w in zip(("planes", "load", "rows"), got, want):
+        assert g.is_cuda and _fe_within(g, w, dtype, label), label
+
+
+def test_fe_kernel_matches_plain_at_config5(dev):
+    """BASELINE config 5's 2241^2 grid in f64 (a world of one): planes to
+    1e-12, load and rows to 1e-12 of their largest entry."""
+    from saddle_point_petsc_tpu_torch.ops.cuda import assembly
+    from saddle_point_petsc_tpu_torch.parallel import dist as pdist
+
+    xs, ys, my, mx = _fe_patch((2240, 2240, (1, 1), (0, 0)), torch.float64, dev)
+    got = assembly.q1_assemble(xs, ys, my, mx, force="trig", rows=True)
+    # one plain accumulator at a time: the batched products of all three
+    # hold ~13 GB at this size
+    for i, label in enumerate(("planes", "load", "rows")):
+        want = pdist._accumulators_plain(xs, ys, my, mx, body_force="trig" if i == 1 else None,
+                                         planes=i == 0, rows=i == 2)[i]
+        assert _fe_within(got[i], want, torch.float64, label), label
+        del want
+
+
+def test_fe_kernel_callable_force_on_card(nccl_world):
+    """A callable body force on the -dist route: one launch of the kernel
+    writes planes and rows, the load comes from the batched products
+    (fem.element_rhs), bit for bit."""
+    from saddle_point_petsc_tpu_torch.models import fem
+    from saddle_point_petsc_tpu_torch.parallel import dist as pdist
+
+    grid = pdist.DistGrid.create(40, 27, nccl_world)
+    monitor.reset_counters()
+    got = pdist._accumulators(grid, torch.float64, fem.trig_body_force, rows=True)
+    assert monitor.counters["FE.launches"] == 1
+    xs, ys = pdist._local_axes(grid, torch.float64, nccl_world.device)
+    want = pdist._accumulators_plain(xs, ys, grid.my, grid.mx, body_force=fem.trig_body_force, rows=True)
+    assert torch.equal(got[1], want[1])
+    assert _fe_within(got[0], want[0], torch.float64) and _fe_within(got[2], want[2], torch.float64, "rows")
+
+
+def test_dist_assembly_launches_fe_once_on_card(nccl_world):
+    """One FE launch an assembly on one rank: assemble_saddle_dist writes
+    planes, load and rows in one; the result within rounding of the serial
+    KKT system (f64: planes 1e-12, f and Bf 1e-12 of their largest
+    entry)."""
+    from saddle_point_petsc_tpu_torch.models import saddle
+    from saddle_point_petsc_tpu_torch.parallel import dist as pdist
+
+    grid = pdist.DistGrid.create(40, 27, nccl_world)
+    monitor.reset_counters()
+    K, (f, g), mask = pdist.assemble_saddle_dist(grid)
+    assert monitor.counters["FE.launches"] == monitor.counters["FE.launches.float64"] == 1
+    serial = saddle.assemble_saddle(40, 27, device=nccl_world.device, body_force="trig")
+    assert _fe_within(K.A.planes, serial.K.A.planes, torch.float64)
+    assert _fe_within(f, serial.f, torch.float64, "load") and _fe_within(K.Bf, serial.K.Bf, torch.float64, "rows")
+    assert torch.equal(mask, serial.bc_mask) and torch.equal(g, serial.g)
+    A, _, mask = pdist.assemble_poisson_dist(grid, dtype=torch.float32)
+    pdist.assemble_constraints_dist(grid, mask, dtype=torch.float32)
+    assert monitor.counters["FE.launches"] == 3 and monitor.counters["FE.launches.float32"] == 2
 
 
 def _q1_dist_aij(mesh, n, dtype, dia="auto"):
