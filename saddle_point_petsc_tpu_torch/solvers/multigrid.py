@@ -11,8 +11,9 @@
 - Smoothers: red-black block SOR (symmetric, or forward before and
   backward after), Chebyshev(3) over Jacobi on [lmax/4, lmax] with a
   per-level power-iteration bound, or damped point-block Jacobi.
-- Coarsest level: a dense inverse computed on the host at setup, applied
-  with `torch.matmul`.
+- Coarsest level: a dense inverse formed at set-up where the operator
+  lives (the dense matrix in one scatter; on a CUDA device an LU on the
+  card, on the CPU numpy's LAPACK), applied with `torch.matmul`.
 
 Every level's stencil matvec, in the residuals and in the smoothers, goes
 through `StencilOperator`: kernel B1 on a CUDA device. The V-cycle is
@@ -42,9 +43,10 @@ runs under `MGApply`; in it, level k's smoothing (pre and post) under
 under `MGCoarseSolve`, and the distributed hierarchy's gather to every
 rank and scatter back under `MGGather` and `MGScatter`. Set-up runs level
 k under `MGSetUp Lk` (smoothers, with their eigen-estimates, and the
-Galerkin product) and the dense inverse under `MGCoarseSetUp`. Levels are
-numbered from the finest, 0, through the split levels and then the
-replicated tail; the names are built once, at set-up (`LevelSpans`).
+Galerkin product) and the coarsest level's dense matrix and its inverse
+under `MGCoarseSetUp`. Levels are numbered from the finest, 0, through
+the split levels and then the replicated tail; the names are built once,
+at set-up (`LevelSpans`).
 """
 from __future__ import annotations
 
@@ -64,7 +66,7 @@ from saddle_point_petsc_tpu_torch.parallel.dist import DistStencilOperator
 from saddle_point_petsc_tpu_torch.parallel.halo import halo_exchange_1phase
 from saddle_point_petsc_tpu_torch.parallel.mesh import all_gather_tiles
 from saddle_point_petsc_tpu_torch.solvers import precond
-from saddle_point_petsc_tpu_torch.utils.monitor import span
+from saddle_point_petsc_tpu_torch.utils.monitor import count, span
 
 
 def _pad1(x):
@@ -355,10 +357,11 @@ def mg_pc(A: StencilOperator, opts=None, max_levels=10, coarse_size=5, smoother=
     """Build the hierarchy on A's device: Galerkin coarsening while both
     node counts are odd and above `coarse_size`, up to `max_levels`
     levels (the coarsest included), then a dense inverse of the coarsest
-    operator on the host. Options: -pc_mg_levels, -pc_mg_smoother
-    {sor,sor-fb,chebyshev,jacobi}, -pc_mg_cycles. `level0` numbers the
-    first level in the span names (a distributed hierarchy's tail
-    continues its count)."""
+    operator, formed afresh on A's device (`_dense_inverse`: an LU on the
+    card on a CUDA device, numpy's on the CPU). Options: -pc_mg_levels,
+    -pc_mg_smoother {sor,sor-fb,chebyshev,jacobi}, -pc_mg_cycles.
+    `level0` numbers the first level in the span names (a distributed
+    hierarchy's tail continues its count)."""
     max_levels, smoother, cycles = _mg_options(opts, max_levels, smoother, cycles)
     levels = []
     op = A
@@ -369,28 +372,47 @@ def mg_pc(A: StencilOperator, opts=None, max_levels=10, coarse_size=5, smoother=
             op = galerkin_coarse_stencil(op)
     _check_coarsest(*op.grid_shape)
     with span("MGCoarseSetUp"):
-        dense = _stencil_to_dense_host(op.W.detach().cpu().numpy())
-        coarse_inv = torch.tensor(np.linalg.inv(dense), device=op.planes.device)
+        coarse_inv = _dense_inverse(_stencil_to_dense(op.planes.detach()))
     return MGPC(tuple(levels), coarse_inv, cycles)
 
 
-def _stencil_to_dense_host(W):
-    """Dense natural-ordering matrix of a block-layout (ny, nx, 3, 3, 2, 2)
-    stencil, in numpy: the coarsest level's assembly."""
-    ny, nx = W.shape[:2]
+def _stencil_to_dense(planes):
+    """Dense natural-ordering matrix of a (4, 3, 3, ny, nx) stencil, on the
+    planes' device: one scatter-add into zeros. Entry (2a + b, dj, di, j, i)
+    goes to row (j*nx + i)*2 + a, column ((j+dj-1)*nx + i+di-1)*2 + b; each
+    (row node, offset) names its own column node, so every entry is added
+    once to a zero, the bits of the JAX package's loop over nodes. Entries
+    whose column node is off the grid go to one spare slot past the matrix."""
+    ny, nx = planes.shape[-2:]
     n = ny * nx * 2
-    dense = np.zeros((n, n), W.dtype)
-    for dj in range(3):
-        for di in range(3):
-            blk = W[:, :, dj, di]  # (ny, nx, 2, 2)
-            jlo, jhi = max(0, 1 - dj), ny - max(0, dj - 1)
-            ilo, ihi = max(0, 1 - di), nx - max(0, di - 1)
-            for j in range(jlo, jhi):
-                for i in range(ilo, ihi):
-                    r = (j * nx + i) * 2
-                    c = ((j + dj - 1) * nx + (i + di - 1)) * 2
-                    dense[r : r + 2, c : c + 2] += blk[j, i]
-    return dense
+
+    def axis(k, dim):  # arange(k) along dim of the planes' (2, 2, 3, 3, ny, nx) view
+        shape = [1] * 6
+        shape[dim] = k
+        return torch.arange(k, device=planes.device).view(shape)
+
+    j, i = axis(ny, 4), axis(nx, 5)
+    cj, ci = j + axis(3, 2) - 1, i + axis(3, 3) - 1
+    on = (cj >= 0) & (cj < ny) & (ci >= 0) & (ci < nx)
+    at = ((j * nx + i) * 2 + axis(2, 0)) * n + (cj * nx + ci) * 2 + axis(2, 1)
+    flat = planes.new_zeros(n * n + 1)
+    flat.index_add_(0, torch.where(on, at, n * n).reshape(-1), planes.reshape(-1))
+    return flat[:-1].view(n, n)
+
+
+def _dense_inverse(dense):
+    """The coarsest level's inverse, where `dense` lives: on a CUDA device a
+    dense LU on the card (cuSOLVER, in dense's dtype; counted in
+    `MGCoarse.device`), whose status word is the one read back; on the CPU
+    numpy's LAPACK, the JAX package's bits. A singular operator raises
+    numpy's LinAlgError on both."""
+    if not dense.is_cuda:
+        return torch.from_numpy(np.linalg.inv(dense.numpy()))
+    inv, info = torch.linalg.inv_ex(dense)
+    if info.item():
+        raise np.linalg.LinAlgError("Singular matrix")
+    count("MGCoarse.device")
+    return inv.contiguous()  # row-major, as numpy's: the coarse solve's product keeps its kernel
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,9 @@ table, and the -log_view phase timers (the PyTorch side of
 - `counters`: a plain dict of ints, always on. `count(name, n)` adds,
   `reset_counters()` clears. The kernel modules count launches
   (`B1.launches`, `B1.launches.padded`, `B1.launches.float64`, ... B2-B6,
-  and `FE.launches`, `FE.launches.float64`, ... of the assembly kernel);
+  and `FE.launches`, `FE.launches.float64`, ... of the assembly kernel),
+  and solvers/multigrid.py the coarsest levels inverted on the card
+  (`MGCoarse.device`, one a set-up);
   parallel/halo.py counts the messages and bytes it posts, and
   `ProcessMesh` its all_reduce and all_to_all calls and bytes when the
   mesh has more than one rank.
@@ -59,7 +61,7 @@ def reset_counters():
     counters.clear()
 
 
-_LAUNCHES = re.compile(r"^(B\d|FE)\.launches$")
+_LAUNCHES = re.compile(r"^((B\d|FE)\.launches|MGCoarse\.device)$")
 
 
 def _moved(before, after):
@@ -80,7 +82,7 @@ class PhaseStats:
     name: str
     count: int = 0
     total_s: float = 0.0
-    launches: int = 0  # kernel launches (B1-B6, FE)
+    launches: int = 0  # kernel launches (B1-B6, FE) and coarse inverses on the card
     messages: int = 0  # halo and all_to_all messages posted
     bytes_sent: int = 0
     reductions: int = 0  # all_reduce calls

@@ -17,7 +17,9 @@ bounds as B1. KSPMatSolve on the card against the CPU: iterations +-1
 (batched dot products reduce in another order on the card), x to 1e-9.
 Multigrid, SOR, ILU(0) and one refinement cycle on the card against the
 same call on CPU tensors: 1e-12 * max|y| in f64, 1e-5 * max|y| in f32 (the
-V-cycle and the refinement's inner solve run in f32). Kernel FE (the -dist
+V-cycle and the refinement's inner solve run in f32); the MG coarsest
+inverse formed on the card against numpy's, 1e-12 of its largest entry
+in f64. Kernel FE (the -dist
 assembly) against its plain version, and the -dist assembly against the
 serial one: in f64 planes to 1e-12, loads and constraint rows to 1e-12 of
 their largest entry; 4 ulp of the largest entry in f32 (the batched
@@ -348,6 +350,35 @@ def test_vcycle_on_card_matches_cpu(dev, dtype, tol, smoother):
     assert _within(z.cpu(), z_cpu, tol)
 
 
+def test_mg_coarsest_inverted_on_card(dev):
+    """At 71^2 nodes (one Galerkin level, then config 5's 36^2 coarsest,
+    2,592 dofs, f64) mg_pc builds the dense matrix on the card with the
+    CPU's bits and inverts it there: within 1e-12 of numpy's inverse,
+    relative to its largest entry. MGCoarse.device moves by exactly 1 a
+    mg_pc, and not for a singular coarsest, which raises."""
+    import numpy as np
+
+    A = poisson.assemble_poisson(70, 70, dtype=torch.float64, device=dev, body_force="trig").A
+    monitor.reset_counters()
+    M = multigrid.mg_pc(A)
+    assert len(M.levels) == 1 and monitor.counters["MGCoarse.device"] == 1
+    ci = M.coarse_inv
+    assert ci.is_cuda and ci.is_contiguous() and ci.shape == (2592, 2592) and ci.dtype == torch.float64
+    coarse = multigrid.galerkin_coarse_stencil(A)
+    dense = multigrid._stencil_to_dense(coarse.planes)
+    assert dense.is_cuda and torch.equal(dense.cpu(), multigrid._stencil_to_dense(coarse.planes.cpu()))
+    ref = np.linalg.inv(dense.cpu().numpy())
+    assert np.abs(ci.cpu().numpy() - ref).max() <= 1e-12 * np.abs(ref).max()
+    multigrid.mg_pc(A)
+    assert monitor.counters["MGCoarse.device"] == 2
+    planes = torch.zeros((4, 3, 3, 5, 5), dtype=torch.float64, device=dev)
+    planes[0, 1, 1] = planes[3, 1, 1] = 1.0
+    planes[:, 1, 1, 2, 3] = 0.0
+    with pytest.raises(np.linalg.LinAlgError):
+        multigrid.mg_pc(StencilOperator(planes))
+    assert monitor.counters["MGCoarse.device"] == 2
+
+
 @pytest.mark.parametrize("order", ["symmetric", "forward"])
 @pytest.mark.parametrize("dtype,tol", _F32_F64)
 def test_sor_on_card_matches_cpu(dev, dtype, tol, order):
@@ -487,6 +518,24 @@ def test_dist_cli_world_of_one_on_card(nccl_world):
     assert d.rc == s.rc == 0 and d.result.iterations == s.result.iterations
     assert launches >= d.result.iterations
     assert _within(d.result.x[0].cpu(), s.result.x[0].cpu(), 2.5e-6)
+
+
+@pytest.mark.parametrize("route", ["dist", "serial"])
+@pytest.mark.parametrize("n", [71, 141])
+def test_kkt_minres_mg_count_on_card(nccl_world, n, route):
+    """BASELINE config 5's solver (MINRES, Schur(diag), a Chebyshev MG
+    A-block, rtol 1e-8, f64) on the card at n^2 nodes, whose MG ends on
+    config 5's 36^2 coarsest, inverted on the card: 6 iterations on both
+    routes, the count an H100 gave with the inverse formed by numpy on the
+    host."""
+    argv = ["-device", "cuda", "-problem_type", "saddle", "-body_force", "trig", "-da_grid_x", str(n),
+            "-da_grid_y", str(n), "-dtype", "f64", "-no_vtk", "-ksp_type", "minres", "-pc_type", "fieldsplit",
+            "-pc_fieldsplit_schur_fact_type", "diag", "-fieldsplit_inner_pc_type", "mg",
+            "-pc_mg_smoother", "chebyshev", "-ksp_rtol", "1e-8", "-ksp_max_it", "500"]
+    monitor.reset_counters()
+    r = cli.run(argv + (["-dist"] if route == "dist" else []))
+    assert r.rc == 0 and r.result.iterations == 6
+    assert monitor.counters["MGCoarse.device"] == 1
 
 
 # kernel FE (csrc/q1_assembly.cu) against its plain version: one rank's

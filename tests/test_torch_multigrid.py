@@ -130,6 +130,40 @@ def test_mg_cycles_flat_and_options(pairs):
     np.testing.assert_allclose(Mt(torch.tensor(r)).numpy(), zj, rtol=1e-12, atol=1e-12 * np.max(np.abs(zj)))
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", [(3, 3), (5, 7), (9, 9), (36, 36)])
+def test_dense_coarsest_matches_jax_loop(shape, dtype):
+    """The coarsest level's dense matrix in one scatter against the JAX
+    package's loop over nodes, on random block stencils whose off-grid
+    entries are set too, a tenth of the entries negative zeros (the loop's
+    += stores +0): the same bits."""
+    from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator as TS
+
+    rng = np.random.default_rng(shape[0] * 100 + shape[1])
+    W = rng.standard_normal((*shape, 3, 3, 2, 2)).astype(dtype)
+    W[rng.random(W.shape) < 0.1] = -0.0
+    ref = jmg._stencil_to_dense_host(W)
+    got = tmg._stencil_to_dense(TS.from_block(torch.tensor(W)).planes).numpy()
+    assert got.dtype == ref.dtype and np.array_equal(got, ref)
+    assert np.array_equal(got.view(np.uint8), ref.view(np.uint8))
+
+
+def test_singular_coarsest_raises():
+    """A 5 x 5 grid too small to coarsen, its stencil the identity but at
+    one node, where it is zero: the dense coarse matrix is singular, and
+    mg_pc raises numpy's LinAlgError, as the JAX mg_pc does."""
+    from saddle_point_petsc_tpu.ops.stencil import StencilOperator as JS
+    from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator as TS
+
+    planes = np.zeros((4, 3, 3, 5, 5))
+    planes[0, 1, 1] = planes[3, 1, 1] = 1.0
+    planes[:, 1, 1, 2, 3] = 0.0
+    with pytest.raises(np.linalg.LinAlgError):
+        jmg.mg_pc(JS(jnp.asarray(planes)))
+    with pytest.raises(np.linalg.LinAlgError):
+        tmg.mg_pc(TS(torch.tensor(planes)))
+
+
 def test_even_grid_raises():
     """66 x 66 nodes never coarsen (node counts must be odd), and the
     8,712-dof coarse level passes the 8,192-dof dense cap: both raise."""

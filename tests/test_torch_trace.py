@@ -224,12 +224,15 @@ def test_log_view_reports_what_each_phase_moved(capsys):
         monitor.count("all_reduce.calls", 3)
     with log.phase("Empty"):
         pass
+    with log.phase("PCSetUp"):
+        monitor.count("MGCoarse.device")  # a coarsest level inverted on the card
     log.report()
     lines = capsys.readouterr().out.splitlines()
     assert lines[1].split() == ["Phase", "Count", "Time", "(s)", "%T", "Launches", "Mess", "AvgLen", "Reduct"]
     row = next(line.split() for line in lines if line.startswith("KSPSolve"))
     assert row[1] == "1" and row[4:] == ["7", "4", "250", "3"]
     assert next(line.split() for line in lines if line.startswith("Empty"))[4:] == ["0", "0", "0", "0"]
+    assert next(line.split() for line in lines if line.startswith("PCSetUp"))[4:] == ["1", "0", "0", "0"]
 
 
 def test_cli_log_view_and_profile_hold_the_spans(tmp_path, capsys):
