@@ -48,9 +48,9 @@
 //   column by column, from L1 for neighbouring offsets. For the transposed
 //   (k, n) batch each such read is one coalesced run of rows per warp.
 // Staging X in shared memory instead, one window per run copied with
-// cp.async into a ring of buffers (tools/dia_spmm_window.cu), measured
-// slower than all three on an H100 (PERF.md): its copy pipeline alone
-// took longer than the strided path's whole sum. Y is written with the
+// cp.async into a ring of buffers, measured slower than all three on an
+// H100 (CHANGES.md, the B6 redesign): its copy pipeline alone took longer
+// than the strided path's whole sum. Y is written with the
 // streaming hint (__stcs), and the strided and rows paths read band values
 // with it (__ldcs): neither is read again, so L1 keeps X. The strided and
 // rows paths take their offsets from a small int32 device array read by

@@ -102,6 +102,8 @@ class StencilOperator:
     """
 
     planes: torch.Tensor  # (4, 3, 3, ny, nx)
+    # the global (row, column) of the first node: a serial grid is whole
+    origin = (0, 0)
 
     @staticmethod
     def from_block(W):
@@ -129,6 +131,11 @@ class StencilOperator:
     def nnz(self):
         """Number of stored (stencil) entries, the bandwidth-relevant count."""
         return self.planes.numel()
+
+    def pad(self, x):
+        """(..., ny, nx) -> (..., ny+2, nx+2): x with its ring of zero
+        (Dirichlet) ghosts."""
+        return F.pad(x, (1, 1, 1, 1))
 
     def matvec_field(self, xT):
         """(2, ny, nx) -> (2, ny, nx)."""

@@ -222,12 +222,17 @@ class DistStencilOperator:
         """Stored stencil entries over all ranks."""
         return self.planes.numel() * self.mesh.size
 
+    def pad(self, x):
+        """(..., my, mx) patch -> (..., my+2, mx+2): x with its ring of the
+        neighbours' nodes (one single-phase exchange), zero past the global
+        boundary."""
+        return halo_exchange_1phase(x, self.mesh)
+
     def matvec_field(self, x):
         """(2, my, mx) patch -> (2, my, mx) patch of A x."""
         return _local_matvec(self.planes, x.contiguous(), self.mesh)
 
-    def __call__(self, x):
-        return self.matvec_field(x)
+    __call__ = matvec_field
 
     def matmat_field(self, X):
         """Distributed SpMM on a batch of k patches (k, 2, my, mx): ONE halo

@@ -18,7 +18,8 @@ over row-partitioned DistAIJs.
 
 V-cycle (or W-cycle) with R = P^T and the same symmetric Chebyshev
 smoother before and after, so the PC is SPD for SPD A (valid under CG and
-MINRES).
+MINRES): solvers/multigrid.py's one `cycle`, under its level spans
+(`MGSmooth Lk`, `MGResid Lk`, `MGRestrict Lk`, `MGInterp Lk`).
 
 The distributed hierarchy (`dist_amg_pc`, PCGAMG on MATMPIAIJ) stores each
 level, P and R = P^T as DistAIJs (parallel/dist_csr.py) and applies them
@@ -46,6 +47,7 @@ from saddle_point_petsc_tpu_torch.ops.stencil import (
 from saddle_point_petsc_tpu_torch.parallel import dist_csr
 from saddle_point_petsc_tpu_torch.parallel import mesh as pmesh
 from saddle_point_petsc_tpu_torch.solvers import precond
+from saddle_point_petsc_tpu_torch.solvers.multigrid import LevelSpans, cycle
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,9 +79,14 @@ class AMGLevel:
     agg: torch.Tensor  # (n_f,) int64
     s: torch.Tensor  # (n_f,)
     dinv: torch.Tensor  # (n_f,)
-    smoother: Any  # precond.ChebyshevPC
+    smoother: Any  # precond.ChebyshevPC, before and after
     omega: float
     n_c: int
+    spans: LevelSpans = LevelSpans.of(0)
+
+    @property
+    def post(self):
+        return self.smoother
 
     def prolong(self, xc):
         """P xc = (I - omega D^-1 A) (s * xc[agg])."""
@@ -112,25 +119,14 @@ class AMGPC:
         if field:
             r = field_to_flat(r)
         # an empty hierarchy (input already <= coarse_max rows): the coarse
-        # solve is exact, apply it directly
-        z = self._vcycle(0, r) if self.levels else self.coarse_inv @ r
+        # solve is exact, applied directly
+        z = cycle(self.levels, self._coarse, r, w=self.cycles >= 2)
         if field:
             z = flat_to_field(z, *self.field_shape)
         return z
 
-    def _vcycle(self, k, r):
-        if k == len(self.levels):
-            return self.coarse_inv @ r
-        lvl = self.levels[k]
-        z = lvl.smoother(r)  # pre-smooth from a zero initial guess
-        rc = lvl.restrict(r - lvl.A(z))
-        zc = self._vcycle(k + 1, rc)
-        if self.cycles >= 2 and k + 1 < len(self.levels):
-            # W-cycle: recurse again on the updated coarse residual
-            # (not at the coarsest level, whose solve is exact)
-            zc = zc + self._vcycle(k + 1, rc - self.levels[k + 1].A(zc))
-        z = z + lvl.prolong(zc)
-        return z + lvl.smoother(r - lvl.A(z))  # post-smooth
+    def _coarse(self, r):
+        return self.coarse_inv @ r
 
 
 # ---------------------------------------------------------------------------
@@ -442,6 +438,7 @@ def amg_pc(
                 sm,
                 float(omega),
                 int(na),
+                LevelSpans.of(len(levels)),
             )
         )
         Asp = Ac
@@ -462,8 +459,21 @@ class DistAMGLevel:
     A: Any  # DistAIJ, the level operator
     P: Any  # DistAIJ (n_f, n_c): coarse -> fine, columns padded to the next level's n_pad
     R: Any  # DistAIJ (n_c, n_f) = P^T: fine -> coarse, columns padded to this level's n_pad
-    smoother: Any  # precond.ChebyshevPC over A
+    smoother: Any  # precond.ChebyshevPC over A, before and after
     n_pad_c: int  # the next level's padded length
+    spans: LevelSpans = LevelSpans.of(0)
+
+    @property
+    def post(self):
+        return self.smoother
+
+    # R and P are rectangular: restriction lands in the coarse padded
+    # length and prolongation consumes it, each O(P nnz)
+    def restrict(self, r):
+        return self.R.matvec(r)
+
+    def prolong(self, zc):
+        return self.P.matvec(zc)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -482,35 +492,21 @@ class DistAMGPC:
     cycles: int = 1  # PETSc PCMGSetCycleType: 1 = V, 2 = W
 
     def __call__(self, r):
-        # an empty hierarchy: the coarse solve is exact
-        return self._vcycle(0, r) if self.levels else self._coarse(r)
+        # an empty hierarchy: the coarse solve is exact, applied directly
+        return cycle(self.levels, self._coarse, r, w=self.cycles >= 2)
 
     def _coarse(self, r):
         lo = self.mesh.rank * r.shape[0]
         return (self.coarse_inv @ pmesh.gather_rows(r, self.mesh))[lo : lo + r.shape[0]]
 
-    def _vcycle(self, k, r):
-        if k == len(self.levels):
-            return self._coarse(r)
-        lvl = self.levels[k]
-        z = lvl.smoother(r)
-        # R and P are rectangular: restriction lands in the coarse padded
-        # length and prolongation consumes it, each O(P nnz)
-        rc = lvl.R.matvec(r - lvl.A.matvec(z))
-        zc = self._vcycle(k + 1, rc)
-        if self.cycles >= 2 and k + 1 < len(self.levels):
-            zc = zc + self._vcycle(k + 1, rc - self.levels[k + 1].A.matvec(zc))
-        z = z + lvl.P.matvec(zc)
-        return z + lvl.smoother(r - lvl.A.matvec(z))
 
-
-def _dist_level(A, P, R, inv_diag, rho, smooth_its, nxt):
-    """A DistAMGLevel with its Chebyshev(Jacobi) smoother on [rho/4,
-    1.1 rho]; inv_diag is this rank's (n_loc,) host rows of D^-1."""
+def _dist_level(A, P, R, inv_diag, rho, smooth_its, nxt, k=0):
+    """Level k, a DistAMGLevel with its Chebyshev(Jacobi) smoother on
+    [rho/4, 1.1 rho]; inv_diag is this rank's (n_loc,) host rows of D^-1."""
     assert P.n_pad_c == nxt.n_pad and R.n_pad_c == A.n_pad, "transfer paddings disagree with the levels'"
     inner = precond.JacobiPC(torch.tensor(inv_diag, dtype=A.diag_vals_t.dtype, device=A.mesh.device))
     sm = precond.ChebyshevPC(A, inner, lmin=rho / 4.0, lmax=1.1 * rho, iters=smooth_its)
-    return DistAMGLevel(A, P, R, sm, nxt.n_pad)
+    return DistAMGLevel(A, P, R, sm, nxt.n_pad, LevelSpans.of(k))
 
 
 def _padded_coarse_inverse(Asp, n_pad, dtype, device):
@@ -548,7 +544,7 @@ def _rho_dinv_a_device(A, d, iters=15):
     return max(lam.item(), 1e-30)
 
 
-def _dist_amg_stream_level(A, theta, smooth_its):
+def _dist_amg_stream_level(A, theta, smooth_its, k=0):
     """One SA-AMG level from this rank's rows alone: no rank holds the
     global matrix, and every host step is O(local nnz).
 
@@ -563,7 +559,7 @@ def _dist_amg_stream_level(A, theta, smooth_its):
     (`ship_triplets`), and each rank builds its rows of P, R and Ac
     (`dist_aij_from_rows`).
 
-    Returns (level, next level's DistAIJ, its f64 host rows, this rank's
+    Returns (level k, next level's DistAIJ, its f64 host rows, this rank's
     global aggregate ids), or None when the ranks coarsen nothing."""
     import scipy.sparse as sps
 
@@ -624,7 +620,7 @@ def _dist_amg_stream_level(A, theta, smooth_its):
     Pd = dist_csr.dist_aij_from_rows(P_rows, na_tot, mesh, dtype=np_dtype, n_rows=n)
     Rd = dist_csr.dist_aij_from_rows(R_rows, n, mesh, dtype=np_dtype, n_rows=na_tot)
     nxt = dist_csr.dist_aij_from_rows(Ac_rows, na_tot, mesh, dtype=np_dtype)
-    return _dist_level(A, Pd, Rd, 1.0 / d, rho, smooth_its, nxt), nxt, Ac_rows, own[:m_s]
+    return _dist_level(A, Pd, Rd, 1.0 / d, rho, smooth_its, nxt, k), nxt, Ac_rows, own[:m_s]
 
 
 def _ghost_values(A, v):
@@ -676,7 +672,7 @@ def dist_amg_pc(
     if setup == "stream":
         rows = None
         while len(levels) < max_levels - 1 and cur.shape[0] > coarse_max:
-            out = _dist_amg_stream_level(cur, theta, smooth_its)
+            out = _dist_amg_stream_level(cur, theta, smooth_its, len(levels))
             if out is None:
                 break
             lvl, cur, rows, _ = out
@@ -705,6 +701,6 @@ def dist_amg_pc(
             nxt = dist_csr.dist_aij_from_scipy(Ac, mesh, dtype=np_dtype)
             ivd = np.ones(cur.n_pad)  # pad rows: identity scaling
             ivd[: len(d)] = 1.0 / d
-            levels.append(_dist_level(cur, Pd, Rd, mesh.local_rows(ivd), rho, smooth_its, nxt))
+            levels.append(_dist_level(cur, Pd, Rd, mesh.local_rows(ivd), rho, smooth_its, nxt, len(levels)))
             cur, cur_sp = nxt, Ac
     return DistAMGPC(tuple(levels), _padded_coarse_inverse(cur_sp, cur.n_pad, dtype, mesh.device), mesh, cycles)

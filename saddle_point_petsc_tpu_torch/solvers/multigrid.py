@@ -21,6 +21,10 @@ linear and symmetric (for the symmetric smoothers), so it is a valid
 CG/MINRES preconditioner. Grids coarsen only while the node counts are
 odd: 2^k + 1 nodes per side coarsen all the way.
 
+One `cycle` (and `v_cycles`, -pc_mg_cycles of them) serves these
+hierarchies and solvers/amg.py's. A level's transfers read their input's
+one-node ring through its operator's `pad`.
+
 The distributed hierarchy (`DistMGPC`, `mg_pc_dist`) is the serial one on
 the active (unpadded) region of a `DistStencilOperator`, its levels split
 over the ranks: a coarse node J lives on the rank that owns fine node 2J,
@@ -63,14 +67,9 @@ from saddle_point_petsc_tpu_torch.ops.stencil import (
     flat_to_field,
 )
 from saddle_point_petsc_tpu_torch.parallel.dist import DistStencilOperator
-from saddle_point_petsc_tpu_torch.parallel.halo import halo_exchange_1phase
 from saddle_point_petsc_tpu_torch.parallel.mesh import all_gather_tiles
 from saddle_point_petsc_tpu_torch.solvers import precond
 from saddle_point_petsc_tpu_torch.utils.monitor import count, span
-
-
-def _pad1(x):
-    return F.pad(x, (1, 1, 1, 1))
 
 
 def _prolong_window(xcp, ey, ex, ny, nx):
@@ -117,12 +116,12 @@ def prolong(xc, ny, nx):
     """Bilinear interpolation on the last two (spatial) dims:
     (..., nyc, nxc) -> (..., ny, nx) with ny = 2*nyc-1, nx = 2*nxc-1
     (nested node grids). Works on dof-major (2, nyc, nxc) fields."""
-    return _prolong_window(_pad1(xc), 0, 0, ny, nx)
+    return _prolong_window(F.pad(xc, (1, 1, 1, 1)), 0, 0, ny, nx)
 
 
 def restrict(rf, nyc, nxc):
     """Exact adjoint of `prolong`: (..., ny, nx) -> (..., nyc, nxc)."""
-    return _restrict_window(_pad1(rf), 0, 0, nyc, nxc)
+    return _restrict_window(F.pad(rf, (1, 1, 1, 1)), 0, 0, nyc, nxc)
 
 
 _W1D = {-1: 0.5, 0: 1.0, 1: 0.5}  # hat weights of the bilinear prolongation
@@ -145,7 +144,7 @@ def galerkin_coarse_stencil(op: StencilOperator) -> StencilOperator:
     exterior.
     """
     ny, nx = op.grid_shape
-    return StencilOperator(_galerkin_window(_pad1(op.planes), 0, 0, (ny + 1) // 2, (nx + 1) // 2))
+    return StencilOperator(_galerkin_window(op.pad(op.planes), 0, 0, (ny + 1) // 2, (nx + 1) // 2))
 
 
 def _galerkin_window(pp, ey, ex, nyc, nxc):
@@ -218,7 +217,7 @@ class LevelSpans:
 
 @dataclasses.dataclass(frozen=True)
 class MGLevel:
-    A: StencilOperator
+    A: Any  # StencilOperator, or a DistStencilOperator on a split level
     smoother: Any  # PC applied as the pre-smoother
     post_smoother: Any = None  # None: the same as `smoother`
     spans: LevelSpans = LevelSpans.of(0)
@@ -226,6 +225,56 @@ class MGLevel:
     @property
     def post(self):
         return self.smoother if self.post_smoother is None else self.post_smoother
+
+    def restrict(self, res):
+        """P^T res on this level's grid, or on this rank's patch of it."""
+        (j0, i0), (mj, mi) = self.A.origin, res.shape[-2:]
+        ey, ex = j0 % 2, i0 % 2
+        return _restrict_window(self.A.pad(res), ey, ex, (mj - ey + 1) // 2, (mi - ex + 1) // 2)
+
+    def prolong(self, zc):
+        """P zc on this level's grid, or on this rank's patch of it."""
+        (j0, i0), (mj, mi) = self.A.origin, self.A.planes.shape[-2:]
+        return _prolong_window(self.A.pad(zc), j0 % 2, i0 % 2, mj, mi)
+
+
+def cycle(levels, coarse, r, k=0, w=False):
+    """One V-cycle (W-cycle if `w`) on level k's r from a zero guess;
+    `coarse(r)` solves below the last level. A level offers `A`,
+    `smoother`, `post`, `restrict`, `prolong` and `spans`."""
+    if k == len(levels):
+        return coarse(r)
+    lvl = levels[k]
+    names = lvl.spans
+    with span(names.smooth):
+        z = lvl.smoother(r)
+    with span(names.resid):
+        res = r - lvl.A(z)
+    with span(names.restrict):
+        rc = lvl.restrict(res)
+    zc = cycle(levels, coarse, rc, k + 1, w)
+    if w and k + 1 < len(levels):  # again on the new residual, but not on the exact coarsest
+        zc = zc + cycle(levels, coarse, rc - levels[k + 1].A(zc), k + 1, w)
+    with span(names.interp):
+        z = z + lvl.prolong(zc)
+    with span(names.resid):
+        res = r - lvl.A(z)
+    with span(names.smooth):
+        return z + lvl.post(res)
+
+
+def v_cycles(levels, coarse, r, n):
+    """n V-cycles from a zero guess, each on the residual of the last
+    (-pc_mg_cycles of -pc_type mg); with no level, the coarse solve."""
+    if not levels:
+        return coarse(r)
+    top = levels[0]
+    z = torch.zeros_like(r)
+    for _ in range(n):
+        with span(top.spans.resid):
+            res = r - top.A(z)
+        z = z + cycle(levels, coarse, res)
+    return z
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,49 +289,26 @@ class MGPC:
 
     def __call__(self, r):
         with span("MGApply"):
-            return self._apply(r)
+            if r.ndim == 1 and self.levels:
+                return field_to_flat(self.apply_field(flat_to_field(r, *self.levels[0].A.grid_shape)))
+            return self.apply_field(r)
 
-    def _apply(self, r):
-        flat = r.ndim == 1
-        if not self.levels:  # a grid too small to coarsen: the dense solve is exact
-            with span("MGCoarseSolve"):
-                return self.coarse_inv @ r if flat else self._coarse_solve(r)
-        if flat:
-            r = flat_to_field(r, *self.levels[0].A.grid_shape)
-        lvl = self.levels[0]
-        z = torch.zeros_like(r)
-        for _ in range(self.cycles):
-            with span(lvl.spans.resid):
-                res = r - lvl.A.matvec_field(z)
-            z = z + self._vcycle(0, res)
-        return field_to_flat(z) if flat else z
+    def apply_field(self, r):
+        """The PC on a (2, ny, nx) field, outside `MGApply`."""
+        return v_cycles(self.levels, self._coarse, r, self.cycles)
 
-    def _coarse_solve(self, r):
+    def vcycle(self, r):
+        """One V-cycle on a (2, ny, nx) field from a zero initial guess."""
+        return cycle(self.levels, self._coarse, r)
+
+    def _coarse(self, r):
         """The coarsest solve: the dense inverse is in the natural ordering,
         and the system is tiny, so a dense product solves it."""
-        ny, nx = r.shape[-2:]
-        return flat_to_field(self.coarse_inv @ field_to_flat(r), ny, nx)
-
-    def _vcycle(self, k, r):
-        if k == len(self.levels):
-            with span("MGCoarseSolve"):
-                return self._coarse_solve(r)
-        lvl = self.levels[k]
-        names = lvl.spans
-        with span(names.smooth):
-            z = lvl.smoother(r)  # pre-smooth from a zero initial guess
-        with span(names.resid):
-            res = r - lvl.A.matvec_field(z)
-        ny, nx = r.shape[-2:]
-        with span(names.restrict):
-            rc = restrict(res, (ny + 1) // 2, (nx + 1) // 2)
-        zc = self._vcycle(k + 1, rc)
-        with span(names.interp):
-            z = z + prolong(zc, ny, nx)
-        with span(names.resid):
-            res = r - lvl.A.matvec_field(z)
-        with span(names.smooth):
-            return z + lvl.post(res)  # post-smooth
+        with span("MGCoarseSolve"):
+            if r.ndim == 1:
+                return self.coarse_inv @ r
+            ny, nx = r.shape[-2:]
+            return flat_to_field(self.coarse_inv @ field_to_flat(r), ny, nx)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -459,27 +485,12 @@ def _level_operator(planes, tiling, mesh):
     return DistStencilOperator(planes, mesh, tiling=((j0, i0), tiling.shape))
 
 
-def _dist_restrict(res, A: DistStencilOperator):
-    """P^T on a level's patches: this rank's coarse patch from its fine
-    patch and the fine ring around it (one exchange)."""
-    (j0, i0), (mj, mi) = A.origin, A.local_shape
-    ey, ex = j0 % 2, i0 % 2
-    return _restrict_window(halo_exchange_1phase(res, A.mesh), ey, ex, (mj - ey + 1) // 2, (mi - ex + 1) // 2)
-
-
-def _dist_prolong(zc, A: DistStencilOperator):
-    """P on a level's patches: this rank's fine patch of A's level from its
-    coarse patch and the coarse ring around it (one exchange)."""
-    (j0, i0), (mj, mi) = A.origin, A.local_shape
-    return _prolong_window(halo_exchange_1phase(zc, A.mesh), j0 % 2, i0 % 2, mj, mi)
-
-
 def _dist_galerkin(A: DistStencilOperator, coarse: _Tiling):
     """The coarse level's operator on this rank's coarse patch: the Galerkin
     planes from the fine planes and their ring (one exchange of the 36
     planes)."""
     (j0, i0), ((J0, J1), (I0, I1)) = A.origin, coarse.patch(A.mesh)
-    pp = halo_exchange_1phase(A.planes, A.mesh)
+    pp = A.pad(A.planes)
     return _level_operator(_galerkin_window(pp, 2 * J0 - j0, 2 * I0 - i0, J1 - J0, I1 - I0), coarse, A.mesh)
 
 
@@ -505,49 +516,22 @@ class DistMGPC:
     def __call__(self, r):
         with span("MGApply"):
             mj, mi = self.active
-            ra = r[:, :mj, :mi]
-            if self.levels:
-                lvl = self.levels[0]
-                z = torch.zeros_like(ra)
-                for _ in range(self.cycles):
-                    with span(lvl.spans.resid):
-                        res = ra - lvl.A.matvec_field(z)
-                    z = z + self._vcycle(0, res)
-            else:  # the whole hierarchy is replicated
-                z = self._scatter(self.tail._apply(self._gather(ra)))
+            z = v_cycles(self.levels, self._coarse, r[:, :mj, :mi], self.cycles)
             if (mj, mi) == tuple(r.shape[-2:]):
                 return z
             out = r.clone()
             out[:, :mj, :mi] = z  # in place: out is the copy of r made above
             return out
 
-    def _gather(self, r):
+    def _coarse(self, r):
+        """This rank's patch of the tail's V-cycle (with no split level, its
+        whole apply) on the level gathered to every rank."""
         with span("MGGather"):
-            return all_gather_tiles(r.contiguous(), self.mesh, self.tiling.rows, self.tiling.cols)
-
-    def _scatter(self, g):
+            g = all_gather_tiles(r.contiguous(), self.mesh, self.tiling.rows, self.tiling.cols)
+        z = self.tail.vcycle(g) if self.levels else self.tail.apply_field(g)
         (j0, j1), (i0, i1) = self.tiling.patch(self.mesh)
         with span("MGScatter"):
-            return g[..., j0:j1, i0:i1].contiguous()
-
-    def _vcycle(self, k, r):
-        if k == len(self.levels):
-            return self._scatter(self.tail._vcycle(0, self._gather(r)))
-        lvl = self.levels[k]
-        names = lvl.spans
-        with span(names.smooth):
-            z = lvl.smoother(r)  # pre-smooth from a zero initial guess
-        with span(names.resid):
-            res = r - lvl.A.matvec_field(z)
-        with span(names.restrict):
-            rc = _dist_restrict(res, lvl.A)
-        zc = self._vcycle(k + 1, rc)
-        with span(names.interp):
-            z = z + _dist_prolong(zc, lvl.A)
-        with span(names.resid):
-            res = r - lvl.A.matvec_field(z)
-        with span(names.smooth):
-            return z + lvl.post(res)  # post-smooth
+            return z[..., j0:j1, i0:i1].contiguous()
 
 
 def mg_pc_dist(A: DistStencilOperator, opts=None, max_levels=10, coarse_size=5, smoother="sor",

@@ -336,18 +336,21 @@ def test_mg_cap_raises_the_jax_error(results, world_of_one):
 
 WORLD_OF_ONE = [("mg", ["-pc_mg_smoother", s]) for s in SMOOTHERS] + [
     ("sor", []), ("fieldsplit", ["-pc_fieldsplit_type", "additive"]),
-    ("fieldsplit", ["-pc_fieldsplit_type", "multiplicative"])]
+    ("fieldsplit", ["-pc_fieldsplit_type", "multiplicative"]),
+    ("mg", ["-pc_mg_smoother", "sor", "-pc_mg_cycles", "2"])]
 
 
 @pytest.mark.parametrize("pc,opts", WORLD_OF_ONE, ids=["mg-" + s for s in SMOOTHERS]
-                         + ["sor", "fieldsplit-additive", "fieldsplit-multiplicative"])
+                         + ["sor", "fieldsplit-additive", "fieldsplit-multiplicative", "mg-sor-cycles2"])
 def test_world_of_one_is_the_serial_pc(world_of_one, pc, opts):
     """In a world of one the distributed PC runs its per-rank code with no
     peer, and gives the serial PC's apply to 1e-14 and its iteration count
-    and solution; the serial mg_pc's levels are the distributed ones."""
+    and solution; the serial mg_pc's levels are the distributed ones, and
+    each level's `pad`, restriction and prolongation give the bits of the
+    serial zero ring and of the public `restrict` and `prolong`."""
     from saddle_point_petsc_tpu_torch.models import poisson
     from saddle_point_petsc_tpu_torch.parallel import dist as pd
-    from saddle_point_petsc_tpu_torch.solvers import krylov
+    from saddle_point_petsc_tpu_torch.solvers import krylov, multigrid
     from saddle_point_petsc_tpu_torch.solvers.ksp import make_pc
     from saddle_point_petsc_tpu_torch.utils.options import Options
 
@@ -365,6 +368,15 @@ def test_world_of_one_is_the_serial_pc(world_of_one, pc, opts):
     if pc == "mg":
         assert [lvl.A.grid_shape for lvl in Md.levels] == [lvl.A.grid_shape for lvl in Ms.levels]
         assert torch.equal(Md.tail.coarse_inv, Ms.coarse_inv)
+        x = r
+        for ld, ls in zip(Md.levels, Ms.levels):
+            ny, nx = x.shape[-2:]
+            xc = multigrid.restrict(x, (ny + 1) // 2, (nx + 1) // 2)
+            assert torch.equal(ld.A.pad(x), ls.A.pad(x))
+            for lvl in (ld, ls):
+                assert torch.equal(lvl.restrict(x), xc)
+                assert torch.equal(lvl.prolong(xc), multigrid.prolong(xc, ny, nx))
+            x = xc
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ clock and the counter table, on the CPU.
   as user annotations, nested as the work is (MGSmooth L0 under PCApply
   under KSPSolve; PCChebyEigEst under PCSetUp; FEElementMatrices under
   MatAssembly), in a serial MINRES + Schur(MG) solve and in a world-of-one
-  gloo `assemble_saddle_dist` + KSP.
+  gloo `assemble_saddle_dist` + KSP; a CG + gamg solve names its levels
+  as MG does.
 - Counters: on a 2 x 2 gloo world (this file run as the worker, one
   process a rank) the halo messages and bytes and the all_reduce calls and
   bytes of the halo exchanges, one distributed matvec and one MINRES
@@ -174,6 +175,24 @@ def test_mg_level_names_continue_through_the_tail():
     M = multigrid.mg_pc(A, smoother="jacobi", level0=3)
     assert [lvl.spans.smooth for lvl in M.levels] == [f"MGSmooth L{3 + k}" for k in range(len(M.levels))]
     assert M.levels[0].spans.setup == "MGSetUp L3" and M.levels[1].spans.resid == "MGResid L4"
+
+
+@pytest.fixture(scope="module")
+def gamg_trace():
+    prob = poisson.assemble_poisson(32, 32, device="cpu")
+    ksp = KSP(Options(["-ksp_type", "cg", "-pc_type", "gamg", "-ksp_rtol", "1e-8"])).set_operators(prob.A)
+    return _profiled(lambda: ksp.set_from_options().set_up().solve(prob.f))
+
+
+@pytest.mark.parametrize("name", ["MGSmooth L0", "MGResid L0", "MGRestrict L0", "MGInterp L0"])
+def test_gamg_apply_names_its_levels(gamg_trace, name):
+    """A gamg apply runs multigrid's one cycle, so its levels carry the
+    geometric hierarchy's span names, each under PCApply (as PETSc's
+    -log_view shows them for PCGAMG)."""
+    res, spans = gamg_trace
+    assert res.converged
+    found = [around for n, around in spans if n == name]
+    assert found and all("PCApply" in around for around in found)
 
 
 @pytest.fixture
