@@ -14,7 +14,12 @@ Phases (each passes or raises; the script exits non-zero on any failure):
    both entry points, node grids 4x4 to 1025x1025 (the main path's among
    them) with planes from assemble_poisson(body_force="trig") and random
    planes; then both timed at 1025^2 with CUDA events (median of 60
-   launches) beside the library call A_csr @ x (below).
+   launches) beside the library call A_csr @ x (below). Then kernel RN,
+   the normal draws of estimate_lmax's start vector, against its CPU twin
+   (Philox words bit-equal, normals within 4 ulp, f32 and f64, odd sizes
+   up to config 5's 2241^2 x 2), and the six draws of config 5's Chebyshev
+   levels timed beside their 107 MB store bound, torch's CUDA normal_, the
+   twin and the CPU torch.randn + copy the port made before.
 4. Main path, f64, 257^2 nodes: the CLI's saddle route to rtol 1e-8,
    counting B1 launches; true residual in f64; the same solve with the
    plain matvec in place of the kernel.
@@ -265,7 +270,7 @@ import torch.nn.functional as F
 from saddle_point_petsc_tpu_torch import cli, graft_entry
 from saddle_point_petsc_tpu_torch.models import poisson
 from saddle_point_petsc_tpu_torch.ops import sparse
-from saddle_point_petsc_tpu_torch.ops.cuda import _build, assembly, bdia, dia, dia_spmm, ell, spmm, spmv
+from saddle_point_petsc_tpu_torch.ops.cuda import _build, assembly, bdia, dia, dia_spmm, ell, rng, spmm, spmv
 from saddle_point_petsc_tpu_torch.models import saddle
 from saddle_point_petsc_tpu_torch.ops.stencil import StencilOperator, field_to_flat
 from saddle_point_petsc_tpu_torch.parallel import dist as pdist
@@ -432,6 +437,79 @@ def phase_kernel(dev, card):
             lambda: A_csr @ x_flat)
         del A_csr
     return max_err, timings
+
+
+# kernel RN (phase 3): draws of odd sizes and one seed above 32 bits, then
+# the start vectors of config 5's six Chebyshev levels (2 dof a node, f64)
+RN_DRAWS = ((1, 0, 0), (7, 5, 1), (1001, (1 << 40) + 3, 2), (2 * 71 * 71 + 1, 2**31 + 7, 0),
+            (2 * 2241 * 2241, 0, 0))
+RN_LEVELS = (2241, 1121, 561, 281, 141, 71)
+
+
+def phase_rn(dev, card):
+    """Phase 3, kernel RN (the normal draws of estimate_lmax's start
+    vector) against its CPU twin: the Philox words bit-equal, the normals
+    within 4 ulp, in f32 and f64, one launch a draw; then the six draws of
+    config 5's Chebyshev levels (13.4M f64 values, 107 MB written) timed
+    with CUDA events beside their store bound and torch's own CUDA
+    normal_ (the yardstick, never called by the port), and on the host
+    clock the twin and what the port did before: torch.randn on the CPU
+    and a pageable copy to the card. Returns (the largest ulp distance,
+    the timings row)."""
+    max_ulp = 0.0
+    for dtype in (torch.float32, torch.float64):
+        for n, seed, leaf in RN_DRAWS:
+            pairs = (n + 1) // 2
+            words = rng.philox_words(pairs, seed, leaf, device=dev)
+            _reset_counts()
+            z = rng.normal_(torch.empty(n, dtype=dtype, device=dev), seed, leaf)
+            torch.cuda.synchronize()
+            launches = (_launches("RN"), monitor.counters.get(f"RN.launches.{str(dtype)[6:]}"))
+            same_bits = np.array_equal(words.cpu().numpy().view(np.uint32), rng.philox_words_plain(pairs, seed, leaf))
+            want = rng.normal_plain(n, seed, leaf).astype(str(dtype)[6:])
+            ulp = float((np.abs(z.cpu().numpy() - want) / np.spacing(np.abs(want))).max())
+            ok = same_bits and ulp <= 4 and launches == (1, 1)
+            print(f"RN {str(dtype)[6:]:<8} n={n:<9} seed={seed:<14} leaf={leaf} words "
+                  f"{'bit-equal' if same_bits else 'DIFFER'}, normals max {ulp:.2f} ulp, launches {launches} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"kernel RN disagrees with its twin: n={n} {dtype}")
+            max_ulp = max(max_ulp, ulp)
+            del words, z
+
+    outs = [torch.empty((2, n, n), dtype=torch.float64, device=dev) for n in RN_LEVELS]
+    nbytes = sum(o.numel() for o in outs) * 8
+
+    def kernel():
+        for o in outs:
+            rng.normal_(o)
+
+    def library():
+        for o in outs:
+            o.normal_()
+
+    ts = [_median_ms(kernel), _median_ms(library), _median_ms(library), _median_ms(kernel)]
+    row = {"ms": min(ts[0], ts[3]), "library_ms": min(ts[1], ts[2])}
+    row["bound_ms"], row["bound_by"] = _bound(nbytes, 0, torch.float64)
+    t0 = time.perf_counter()
+    for n in RN_LEVELS:
+        rng.normal_plain(2 * n * n)
+    row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    gen = torch.Generator().manual_seed(0)
+    t0 = time.perf_counter()
+    for o in outs:
+        o.copy_(torch.randn(o.shape, generator=gen, dtype=o.dtype))
+    torch.cuda.synchronize()
+    row["host_randn_copy_ms"] = (time.perf_counter() - t0) * 1e3
+    print(f"RN  time f64 config 5's six levels ({nbytes / 8:.0f} values) kernel {row['ms'] * 1e3:9.2f} us "
+          f"{nbytes / row['ms'] / 1e6:8.1f} GB/s ({card})")
+    print(f"  bound {row['bound_ms'] * 1e3:.2f} us (bytes: {nbytes / 1e6:.1f} MB written); kernel at "
+          f"{row['bound_ms'] / row['ms']:.2f} of it, torch normal_ on the card {row['library_ms'] * 1e3:.2f} us; "
+          f"medians of 60 in turn (kernel, library, library, kernel): {' '.join(f'{t * 1e3:.2f}' for t in ts)} us; "
+          f"host clock: the twin {row['plain_ms']:.1f} ms, CPU torch.randn + copy to the card "
+          f"{row['host_randn_copy_ms']:.1f} ms")
+    del outs
+    return max_ulp, row
 
 
 # kernel FE (phase 26): BASELINE config 5's grid in f64 and config 4's in
@@ -1259,7 +1337,8 @@ def phase_mg(dev):
                      spmv.planes_matvec_field(planes, x), dtype)
 
     # one V-cycle against the same hierarchy built and applied on the CPU
-    # (estimate_lmax draws its start on the CPU, so both start alike)
+    # (estimate_lmax's start is counter-based, kernel RN here and its twin
+    # on the CPU, so both start alike to a few ulp)
     r = torch.randn((2, n, n), generator=gen, dtype=torch.float32, device=dev)
     M_cpu = multigrid.mg_pc(StencilOperator(A.planes.cpu()), smoother="chebyshev")
     _reset_counts()
@@ -2108,8 +2187,9 @@ def _dist_mg_poisson(dev, card):
 
 def _config5(dev, card):
     """Phase 23 (d): BASELINE config 5's solver at 2241^2 through the CLI.
-    Returns its B1 and FE launches (one FE launch: one rank, one
-    assembly), iterations and KSPSolve seconds."""
+    Returns its B1, FE and RN launches (one FE launch: one rank, one
+    assembly; one RN launch a Chebyshev level), iterations and KSPSolve
+    seconds."""
     n = CONFIG5_GRID
     argv = ["-device", "cuda", "-problem_type", "saddle", "-dist", "-da_grid_x", str(n), "-da_grid_y", str(n),
             "-dtype", "f64", "-body_force", "trig"] + CONFIG5_PC + ["-ksp_converged_reason", "-log_view", "-no_vtk"]
@@ -2132,6 +2212,9 @@ def _config5(dev, card):
         raise AssertionError(f"config 5: A-block {type(M).__name__}, {rows} rows")
     if counts["FE"] != 1:
         raise AssertionError(f"config 5: {counts['FE']} FE launches for one rank's one assembly")
+    rn = _launches("RN")
+    if rn != len(M.levels):
+        raise AssertionError(f"config 5: {rn} RN launches for {len(M.levels)} Chebyshev levels")
     if res.converged_reason <= 0 or not np.isfinite(true_rel):
         raise AssertionError(f"config 5: {res.reason_name()}, true residual {true_rel}")
     # B1 at every split level's grid, against its plain version
@@ -2142,7 +2225,7 @@ def _config5(dev, card):
         x = torch.randn((2, *planes.shape[-2:]), generator=gen, dtype=planes.dtype, device=dev)
         _compare(f"B1  config 5 level grid {planes.shape[-1]}^2 f64", spmv.stencil_spmv(planes, x),
                  spmv.planes_matvec_field(planes, x), torch.float64)
-    return {"B1": counts["B1"], "FE": counts["FE"], "its": its, "solve_s": t_solve}
+    return {"B1": counts["B1"], "FE": counts["FE"], "RN": rn, "its": its, "solve_s": t_solve}
 
 
 def phase_mg_dist(dev, tmp, card):
@@ -2360,6 +2443,7 @@ def main():
     print(f"all builds: {time.perf_counter() - t0:.2f} s")
 
     max_err, timings = phase_kernel(dev, card)
+    rn_ulp, rn_timings = phase_rn(dev, card)
     t0 = time.perf_counter()
     fe_err, fe_timings = phase_fe(dev, card)
     print(f"phase 26: {time.perf_counter() - t0:.1f} s ({card})")
@@ -2441,6 +2525,10 @@ def main():
          "source": "saddle_point_petsc_tpu_torch/csrc/q1_assembly.cu",
          "replaces": "none (XLA einsums of saddle_point_petsc_tpu/parallel/dist.py)",
          "launches": fe_launches, "max_abs_err": fe_err, **fe_timings[torch.float64]},
+        {"name": "normal_draw (RN), config 5's six levels f64", "route": "cuda",
+         "source": "saddle_point_petsc_tpu_torch/csrc/normal_draw.cu",
+         "replaces": "none (jax.random.normal of saddle_point_petsc_tpu/solvers/precond.py)",
+         "launches": config5["RN"], "max_ulp": rn_ulp, **rn_timings},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -204,9 +204,10 @@ class DistStencilOperator:
         return g[..., j0 : j0 + my, i0 : i0 + mx]
 
     def global_like(self, t):
-        """An empty CPU tensor of t's dtype shaped like the global array
-        whose patch t is."""
-        return torch.empty((*t.shape[:-2], *self.grid_shape), dtype=t.dtype)
+        """A template of t's dtype, on t's device, shaped like the global
+        array whose patch t is: one element broadcast to that shape, as
+        `ProcessMesh.global_like`."""
+        return t.new_empty(()).expand(*t.shape[:-2], *self.grid_shape)
 
     @property
     def n(self):

@@ -198,9 +198,11 @@ class ProcessMesh:
         return x[self.rank * n : (self.rank + 1) * n]
 
     def global_rows_like(self, t):
-        """An empty CPU tensor of t's dtype shaped like the global array
-        whose block of rows t is."""
-        return torch.empty((t.shape[0] * self.size, *t.shape[1:]), dtype=t.dtype)
+        """A template of t's dtype, on t's device, shaped like the global
+        array whose block of rows t is: one element broadcast to that shape,
+        which holds no memory of its size (only its shape, dtype and device
+        are read)."""
+        return t.new_empty(()).expand(t.shape[0] * self.size, *t.shape[1:])
 
     def local_patch(self, x):
         """This rank's (..., my, mx) view of the global array x (grid dims
@@ -209,9 +211,10 @@ class ProcessMesh:
         return x[..., self.pj * my : (self.pj + 1) * my, self.pi * mx : (self.pi + 1) * mx]
 
     def global_like(self, t):
-        """An empty CPU tensor of t's dtype shaped like the global array
-        whose patch t is: t's last two dims times (py, px)."""
-        return torch.empty((*t.shape[:-2], t.shape[-2] * self.py, t.shape[-1] * self.px), dtype=t.dtype)
+        """A template of t's dtype, on t's device, shaped like the global
+        array whose patch t is (t's last two dims times (py, px)): one
+        element broadcast to that shape, as `global_rows_like`."""
+        return t.new_empty(()).expand(*t.shape[:-2], t.shape[-2] * self.py, t.shape[-1] * self.px)
 
 
 def shard_field(x, mesh: ProcessMesh, dtype=None):

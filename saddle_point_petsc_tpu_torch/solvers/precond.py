@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from saddle_point_petsc_tpu_torch.ops import sparse as sp
+from saddle_point_petsc_tpu_torch.ops.cuda import rng
 from saddle_point_petsc_tpu_torch.ops.stencil import (
     StencilOperator,
     field_to_flat,
@@ -615,14 +616,16 @@ def sor(op: StencilOperator, omega=1.0, sweeps=1, order="symmetric") -> RedBlack
 
 def _start_vector(template, generator):
     """The power iteration's start: standard normal draws shaped like
-    `template` (a tensor or a tuple of tensors), drawn on the CPU from
-    `generator` and moved to the template's device, so that a CPU and a
-    CUDA build of the same operator start from the same vector."""
-
-    def draw(a):
-        return torch.randn(a.shape, generator=generator, dtype=a.dtype).to(a.device)
-
-    return tuple(draw(a) for a in template) if isinstance(template, tuple) else draw(template)
+    `template` (a tensor or a tuple of tensors), made on the template's
+    device by the counter-based generator of ops/cuda/rng.py (kernel RN on
+    the card, its bit-matching twin on the CPU), keyed by the seed
+    (`generator.initial_seed()`, 0 for None) and each leaf's index in the
+    tuple. Element k of a leaf depends only on (seed, leaf, k), so a CPU and
+    a CUDA build of the same operator start from the same vector."""
+    seed = 0 if generator is None else generator.initial_seed()
+    if isinstance(template, tuple):
+        return tuple(rng.normal_like(a, seed, leaf) for leaf, a in enumerate(template))
+    return rng.normal_like(template, seed)
 
 
 @krylov.reduces_over_ranks
@@ -630,26 +633,26 @@ def estimate_lmax(A, M=None, iters=10, generator=None, template=None):
     """Power-iteration estimate of lambda_max(M A) for Chebyshev bounds, as
     a Python float.
 
-    `template` gives the vector structure, shape and dtype; the start
-    vector comes from `_start_vector` with `generator`, a CPU
-    torch.Generator (default: one seeded with 0), where the JAX function
-    takes a PRNG key. The loop stays on the device and syncs once, at the
-    end.
+    `template` gives the vector structure, shape, dtype and device; the
+    start vector comes from `_start_vector` with `generator`, a
+    torch.Generator whose initial seed keys the draw (default: seed 0),
+    where the JAX function takes a PRNG key: standard normals drawn on the
+    template's device (one RN launch a leaf on the card) by a counter-based
+    generator, so the CPU and the card start alike. The loop stays on the
+    device and syncs once, at the end.
 
     For a distributed A (one with a mesh) the template's leaves lie as A
     declares (`krylov.distribution()`): every rank draws the global start
-    vector from the same generator and keeps its patch or rows of each
-    rank-local leaf, and the norms sum over the ranks, so the estimate is
-    the serial one of the global operator. A patch is cut where A puts it
-    (`A.global_like`, `A.local_patch`: an unequal tiling of a multigrid
-    level), else where the mesh does.
+    vector with the same seed on its leaves' device and keeps its patch or
+    rows of each rank-local leaf, and the norms sum over the ranks, so the
+    estimate is the serial one of the global operator. A patch is cut where
+    A puts it (`A.global_like`, `A.local_patch`: an unequal tiling of a
+    multigrid level), else where the mesh does.
     """
     if template is None:
         raise ValueError("need a template vector")
     with span("PCChebyEigEst"):
         M = M or IdentityPC()
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
         d = krylov.distribution()
         if d is None:
             v = _start_vector(template, generator)

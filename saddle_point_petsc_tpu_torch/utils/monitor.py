@@ -14,7 +14,9 @@ table, and the -log_view phase timers (the PyTorch side of
 - `counters`: a plain dict of ints, always on. `count(name, n)` adds,
   `reset_counters()` clears. The kernel modules count launches
   (`B1.launches`, `B1.launches.padded`, `B1.launches.float64`, ... B2-B6,
-  and `FE.launches`, `FE.launches.float64`, ... of the assembly kernel),
+  `FE.launches`, `FE.launches.float64`, ... of the assembly kernel, and
+  `RN.launches`, `RN.launches.float32`, `RN.launches.float64` of the
+  normal draws of estimate_lmax's start vector, one a leaf on the card),
   and solvers/multigrid.py the coarsest levels inverted on the card
   (`MGCoarse.device`, one a set-up);
   parallel/halo.py counts the messages and bytes it posts, and

@@ -23,7 +23,10 @@ in f64. Kernel FE (the -dist
 assembly) against its plain version, and the -dist assembly against the
 serial one: in f64 planes to 1e-12, loads and constraint rows to 1e-12 of
 their largest entry; 4 ulp of the largest entry in f32 (the batched
-products sum in another order).
+products sum in another order). Kernel RN (the normal draws) against its
+CPU twin: the Philox words bit-equal, the normals within 4 ulp (the card's
+log, sin and cos against numpy's), and estimate_lmax on the card against
+the CPU within 1e-13 relative.
 """
 import random
 
@@ -709,3 +712,57 @@ def test_dist_aij_cli_world_of_one_on_card(nccl_world):
     assert d.rc == s.rc == 0 and d.result.iterations == s.result.iterations
     assert launches >= d.result.iterations
     assert _within(d.result.x.cpu(), s.result.x.cpu(), 1e-9)
+
+
+# kernel RN (csrc/normal_draw.cu) against its CPU twin: odd sizes, a seed
+# above 32 bits, leaves 0 and 3
+RN_DRAWS = [(1, 0, 0), (3, 7, 3), (1001, (1 << 40) + 11, 0), ((1 << 20) + 7, 2**31 + 5, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,seed,leaf", RN_DRAWS)
+def test_rn_kernel_matches_twin(dev, dtype, n, seed, leaf):
+    """The Philox words bit-equal to the twin's (so the uniforms are too);
+    the normals within 4 ulp of the twin's (log, sin and cos are the card's
+    against numpy's; a float32 draw is the f64 one rounded); one launch
+    counted by type."""
+    import numpy as np
+
+    from saddle_point_petsc_tpu_torch.ops.cuda import rng
+
+    pairs = (n + 1) // 2
+    words = rng.philox_words(pairs, seed, leaf, device=dev)
+    monitor.reset_counters()
+    z = rng.normal_(torch.empty(n, dtype=dtype, device=dev), seed, leaf)
+    assert _launches("RN") == monitor.counters[f"RN.launches.{str(dtype)[6:]}"] == 1
+    torch.cuda.synchronize()
+    assert np.array_equal(words.cpu().numpy().view(np.uint32), rng.philox_words_plain(pairs, seed, leaf))
+    want = rng.normal_plain(n, seed, leaf).astype(str(dtype)[6:])
+    got = z.cpu().numpy()
+    assert (np.abs(got - want) <= 4 * np.spacing(np.abs(want))).all()
+
+
+def test_estimate_lmax_on_card_matches_cpu(dev):
+    """estimate_lmax of Jacobi-preconditioned A at 65^2 nodes in f64 on the
+    card, against the same on CPU tensors, within 1e-13 relative: one RN
+    launch on the card, none on the CPU."""
+    A = poisson.assemble_poisson(64, 64, dtype=torch.float64, device=dev, body_force="trig").A
+    A_cpu = StencilOperator(A.planes.cpu())
+    tmpl = torch.ones((2, 65, 65), dtype=torch.float64)
+    monitor.reset_counters()
+    lam = precond.estimate_lmax(A, precond.jacobi(A), template=tmpl.to(dev))
+    assert _launches("RN") == 1
+    monitor.reset_counters()
+    lam_cpu = precond.estimate_lmax(A_cpu, precond.jacobi(A_cpu), template=tmpl)
+    assert _launches("RN") == 0
+    assert abs(lam - lam_cpu) <= 1e-13 * lam_cpu
+
+
+def test_mg_setup_launches_rn_once_a_level(dev):
+    """One Chebyshev MG set-up at 257^2 nodes in f64 draws each level's
+    start vector on the card: RN.launches equals the number of Chebyshev
+    levels."""
+    A = poisson.assemble_poisson(256, 256, dtype=torch.float64, device=dev, body_force="trig").A
+    monitor.reset_counters()
+    M = multigrid.mg_pc(A, smoother="chebyshev")
+    assert _launches("RN") == monitor.counters["RN.launches.float64"] == len(M.levels)

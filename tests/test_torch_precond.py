@@ -23,6 +23,8 @@ from saddle_point_petsc_tpu.solvers.ksp import make_pc as jmake_pc
 from saddle_point_petsc_tpu.utils.options import Options as JOptions
 from saddle_point_petsc_tpu_torch.models import poisson as tpoisson
 from saddle_point_petsc_tpu_torch.ops import sparse as tsp
+from saddle_point_petsc_tpu_torch.ops.cuda import rng
+from saddle_point_petsc_tpu_torch.parallel.mesh import ProcessMesh
 from saddle_point_petsc_tpu_torch.solvers import precond as tpc
 from saddle_point_petsc_tpu_torch.solvers.ksp import make_pc as tmake_pc
 from saddle_point_petsc_tpu_torch.utils.options import Options
@@ -174,10 +176,12 @@ def test_estimate_lmax_with_the_jax_start(p17, jax_start):
 
 
 def test_estimate_lmax_own_start_is_seeded(p17):
-    """Without the replacement the port draws from a CPU generator seeded
-    with 0: reproducible, and the estimate agrees with the JAX one's to
-    the spread a 10-step power iteration leaves from another start
-    (measured 0.0058 relative here; 0.0046-0.0089 at 9^2 to 65^2 nodes)."""
+    """Without the replacement the port draws its start with the
+    counter-based generator of ops/cuda/rng.py, keyed by the generator's
+    seed (0 by default): reproducible, and the estimate agrees with the
+    JAX one's to the spread a 10-step power iteration leaves from another
+    start (measured 0.0100 relative here; 0.0067-0.0100 at 9^2 to 65^2
+    nodes)."""
     jp, tp = p17
     tmpl = torch.ones((2, 17, 17), dtype=torch.float64)
     M = tpc.jacobi(tp.A)
@@ -188,6 +192,84 @@ def test_estimate_lmax_own_start_is_seeded(p17):
     lj = float(jpc.estimate_lmax(jp.A, jpc.jacobi(jp.A), template=jnp.ones((2, 17, 17))))
     assert abs(a - lj) <= 0.02 * lj
 
+
+# Random123's known-answer vectors of Philox4x32-10 (kat_vectors):
+# (counter, key, output)
+_PHILOX_KAT = [
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
+
+
+@pytest.mark.parametrize("counter,key,want", _PHILOX_KAT, ids=["zeros", "ones", "pi"])
+def test_philox_twin_known_answers(counter, key, want):
+    got = rng.philox4x32(np.array(counter, dtype=np.uint32), key)
+    assert got.dtype == np.uint32 and tuple(int(w) for w in got) == want
+
+
+def test_normal_draw_is_a_pure_function():
+    """The draw depends on (seed, leaf, shape, dtype) alone, element k on
+    (seed, leaf, k) alone: a shape or a longer draw keeps the flat values,
+    f32 is the f64 draw rounded, another seed or leaf draws otherwise."""
+    t = torch.empty((2, 5, 7), dtype=torch.float64)
+    a = rng.normal_like(t, 3, 1)
+    assert torch.equal(a, rng.normal_like(t, 3, 1))
+    assert torch.equal(a.reshape(-1), rng.normal_like(torch.empty(71, dtype=torch.float64), 3, 1)[:70])
+    assert torch.equal(rng.normal_like(t.float(), 3, 1), a.float())
+    for seed, leaf in ((4, 1), (3, 0), (3 + (1 << 32), 1)):
+        assert not torch.isclose(rng.normal_like(t, seed, leaf), a).any()
+    # the counter's high word and the key: pair 2^32 + 5 of a draw
+    w = rng.philox_words_plain(1, 9, 2, start=(1 << 32) + 5)
+    assert np.array_equal(w, rng.philox4x32(np.array([[5, 1, 0, 0]], dtype=np.uint32), (9, 2)))
+    out = torch.zeros(4, dtype=torch.float64)
+    assert rng.normal_(out, 3, 1) is out and torch.equal(out, a.reshape(-1)[:4])
+    for bad in (torch.zeros(4, dtype=torch.int32), torch.zeros((4, 4), dtype=torch.float64).t()):
+        with pytest.raises((TypeError, ValueError)):
+            rng.normal_(bad)
+    for seed, leaf in ((-1, 0), (1 << 64, 0), (0, 1 << 32)):
+        with pytest.raises(ValueError):
+            rng.normal_like(t, seed, leaf)
+    with pytest.raises(ValueError):
+        rng.philox_words(4, device="cpu")
+
+
+def test_start_vector_keys_leaves_and_generator():
+    """_start_vector keys each leaf by its index in the tuple and the draw
+    by the generator's initial seed (0 without one)."""
+    t = (torch.empty((2, 4, 4), dtype=torch.float64), torch.empty(4, dtype=torch.float32))
+    u, p = tpc._start_vector(t, None)
+    assert torch.equal(u, rng.normal_like(t[0], 0, 0)) and torch.equal(p, rng.normal_like(t[1], 0, 1))
+    assert p.dtype == torch.float32
+    assert torch.equal(tpc._start_vector(t[0], torch.Generator().manual_seed(7)), rng.normal_like(t[0], 7))
+
+
+def test_patch_of_global_draw_is_serial_slice():
+    """A rank's patch (or block of rows) of the draw on its global template
+    equals the same slice of the serial draw, and the global templates hold
+    no memory of their size."""
+    serial = rng.normal_like(torch.empty((2, 12, 10), dtype=torch.float64))
+    rows = rng.normal_like(torch.empty((4, 3), dtype=torch.float64))
+    for pj, pi in ((0, 0), (1, 1), (2, 0)):
+        m = ProcessMesh(3, 2, pj, pi, torch.device("cpu"))
+        g = m.global_like(torch.empty((2, 4, 5), dtype=torch.float64))
+        assert g.shape == (2, 12, 10) and g.untyped_storage().nbytes() == 8
+        patch = m.local_patch(tpc._start_vector(g, None))
+        assert torch.equal(patch, serial[:, 4 * pj : 4 * pj + 4, 5 * pi : 5 * pi + 5])
+    m = ProcessMesh(1, 4, 0, 2, torch.device("cpu"))
+    g = m.global_rows_like(torch.empty((1, 3), dtype=torch.float64))
+    assert g.shape == (4, 3) and torch.equal(m.local_rows(tpc._start_vector(g, None)), rows[2:3])
+
+
+def test_normal_draw_moments():
+    """10^6 draws: sample mean and variance within 5 sigma of 0 and 1."""
+    n = 10**6
+    z = rng.normal_plain(n, seed=12345)
+    assert abs(z.mean()) <= 5 / np.sqrt(n)
+    assert abs(z.var() - 1.0) <= 5 * np.sqrt(2.0 / n)
+    u1, u2 = rng._uniforms(rng.philox_words_plain(1000))
+    assert 0 < u1.min() and u1.max() <= 1 and 0 <= u2.min() and u2.max() < 1
 
 _PC_OPTIONS = [
     ("pbjacobi", []),
