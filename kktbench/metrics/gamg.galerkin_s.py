@@ -1,0 +1,21 @@
+"""gamg.galerkin_s: host seconds in the `GAMGGalerkin Lk` spans (each
+level's Galerkin product P_s^T (A P), R's rows and the triplets shipped
+to their owners) per system set up, over the spans probe's units
+(kktbench/spans.py)."""
+from kktbench import spans
+
+
+def _seconds(out):
+    return sum(r["host_s"] for k, r in out["spans"].items() if k.startswith("GAMGGalerkin"))
+
+
+def probe(run):
+    out = spans.usable(run)
+    # None where the program has no such span (a program older than it)
+    if out is None or not any(k.startswith("GAMGGalerkin") for k in out["spans"]):
+        return None
+    return spans.per_system(run, _seconds, "PCSetUp", device=False)
+
+
+def read(rec):
+    return rec["probes"].get("gamg.galerkin_s")

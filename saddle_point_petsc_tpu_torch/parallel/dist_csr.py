@@ -60,6 +60,7 @@ from saddle_point_petsc_tpu_torch.ops.cuda.dia_spmm import dia_spmm
 from saddle_point_petsc_tpu_torch.ops.cuda.ell import ell_spmv
 from saddle_point_petsc_tpu_torch.parallel.mesh import ProcessMesh, gather_rows
 from saddle_point_petsc_tpu_torch.solvers import precond
+from saddle_point_petsc_tpu_torch.utils import monitor
 
 
 def make_mesh_1d(device=None) -> ProcessMesh:
@@ -622,10 +623,13 @@ def _triplet_cap(rows, n_loc, mesh: ProcessMesh):
 def ship_triplets(rows, cols, vals, n_loc: int, mesh: ProcessMesh):
     """`exchange_triplets` of host numpy triplets at the exact capacity:
     the (rows, cols, vals) this rank received, on the host, padding
-    dropped. Collective."""
+    dropped. Collective. The arrays' bytes to the device and back are
+    counted (`triplets.h2d_bytes`, `triplets.d2h_bytes`)."""
     r, c, v = (torch.from_numpy(np.ascontiguousarray(t)).to(mesh.device) for t in (rows, cols, vals))
+    monitor.count("triplets.h2d_bytes", sum(t.nbytes for t in (r, c, v)))
     r, c, v, _ = exchange_triplets(r, c, v, mesh, n_loc, _triplet_cap(r, n_loc, mesh))
     r, c, v = _host(r), _host(c), _host(v)
+    monitor.count("triplets.d2h_bytes", r.nbytes + c.nbytes + v.nbytes)
     keep = r >= 0
     return r[keep], c[keep], v[keep]
 

@@ -27,7 +27,11 @@ with the DistAIJ matvec. Its setup is either the serial pipeline on the
 global matrix, every rank keeping its rows ("global"), or a level at a
 time from each rank's own rows ("stream", -pc_gamg_setup stream). gamg
 refuses a distributed stencil operator, as in the JAX package (`_to_scipy`
-raises TypeError).
+raises TypeError). The stream set-up runs each step of a level under a
+span named with the level (`GAMGRho`, `GAMGAggregate`, `GAMGProlong`,
+`GAMGGalerkin`, `GAMGLevelBuild` `Lk`) and the coarsest level's gather
+and inverse under `GAMGCoarseSetUp`, and counts what it built
+(`GAMG.levels`, `GAMG.rows`, `GAMG.nnz`; utils/monitor.py).
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from saddle_point_petsc_tpu_torch.parallel import dist_csr
 from saddle_point_petsc_tpu_torch.parallel import mesh as pmesh
 from saddle_point_petsc_tpu_torch.solvers import precond
 from saddle_point_petsc_tpu_torch.solvers.multigrid import LevelSpans, cycle
+from saddle_point_petsc_tpu_torch.utils import monitor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -544,6 +549,15 @@ def _rho_dinv_a_device(A, d, iters=15):
     return max(lam.item(), 1e-30)
 
 
+def _count_level(a, rows):
+    """One level of the hierarchy in the counter table: `GAMG.levels`, and
+    the first `rows` rows of its operator's CSR `a`, this rank's true rows,
+    and their entries (`GAMG.rows`, `GAMG.nnz`)."""
+    monitor.count("GAMG.levels")
+    monitor.count("GAMG.rows", rows)
+    monitor.count("GAMG.nnz", int(a.indptr[rows]))
+
+
 def _dist_amg_stream_level(A, theta, smooth_its, k=0):
     """One SA-AMG level from this rank's rows alone: no rank holds the
     global matrix, and every host step is O(local nnz).
@@ -557,7 +571,9 @@ def _dist_amg_stream_level(A, theta, smooth_its, k=0):
     (`fetch_rows`); the Galerkin contributions P_s^T (A_s P) and R's
     triplets (P's, transposed) go to their row owners
     (`ship_triplets`), and each rank builds its rows of P, R and Ac
-    (`dist_aij_from_rows`).
+    (`dist_aij_from_rows`). Each step runs under its span: `GAMGRho Lk`,
+    `GAMGAggregate Lk`, `GAMGProlong Lk`, `GAMGGalerkin Lk`,
+    `GAMGLevelBuild Lk`.
 
     Returns (level k, next level's DistAIJ, its f64 host rows, this rank's
     global aggregate ids), or None when the ranks coarsen nothing."""
@@ -568,59 +584,70 @@ def _dist_amg_stream_level(A, theta, smooth_its, k=0):
     rank, n, n_loc = mesh.rank, A.shape[0], A.n_loc
     lo = rank * n_loc
     m_s = max(min(lo + n_loc, n) - lo, 0)  # this rank's true rows
-    d = dist_csr._host(A.diagonal()).astype(np.float64)
-    d = np.where(d == 0.0, 1.0, d)
-    rho = _rho_dinv_a_device(A, d)
+    with monitor.span(f"GAMGRho L{k}"):
+        d = dist_csr._host(A.diagonal()).astype(np.float64)
+        d = np.where(d == 0.0, 1.0, d)
+        rho = _rho_dinv_a_device(A, d)
     omega = 4.0 / (3.0 * rho)
 
-    blk = A.to_scipy_rows()[:m_s]
-    agg, na = (0, 0) if m_s == 0 else _aggregate(_strength_graph(blk[:, lo : lo + m_s].tocsr(), theta))
-    counts = torch.zeros(mesh.size, dtype=torch.int64, device=mesh.device)
-    counts[rank] = na
-    counts = dist_csr._host(mesh.all_reduce(counts))
-    na_tot = int(counts.sum())
+    with monitor.span(f"GAMGAggregate L{k}"):
+        blk = A.to_scipy_rows()[:m_s]
+        agg, na = (0, 0) if m_s == 0 else _aggregate(_strength_graph(blk[:, lo : lo + m_s].tocsr(), theta))
+        counts = torch.zeros(mesh.size, dtype=torch.int64, device=mesh.device)
+        counts[rank] = na
+        counts = dist_csr._host(mesh.all_reduce(counts))
+        na_tot = int(counts.sum())
     if na_tot == 0 or na_tot >= n:
         return None
-    own = np.full(n_loc, -1, np.int64)  # P0's column at each row of this rank
-    own[:m_s] = agg + counts[:rank].sum()
-    s_own = np.zeros(n_loc)
-    s_own[:m_s] = 1.0 / np.sqrt(np.bincount(agg, minlength=na).astype(np.float64)[agg]) if m_s else 0.0
+    _count_level(blk, m_s)
 
-    # A_s P0, P0's rows at the ghost columns coming through A's scatter;
-    # every ghost slot (padding too) holds its ghost_cols column's value
-    coo = blk.tocoo()
-    col = coo.col.astype(np.int64)
-    ghost = col // A.n_loc_c != rank
-    pos = col - lo
-    if ghost.any():
-        uc, first = np.unique(A.ghost_cols, return_index=True)
-        pos[ghost] = n_loc + first[np.searchsorted(uc, col[ghost])]
-    p0_col = np.concatenate([own, _ghost_values(A, own)])[pos]
-    p0_val = np.concatenate([s_own, _ghost_values(A, s_own)])[pos]
-    AP0 = sps.csr_matrix((coo.data * p0_val, (coo.row, p0_col)), shape=(m_s, na_tot))
-    P0_s = sps.csr_matrix((s_own[:m_s], (np.arange(m_s), own[:m_s])), shape=(m_s, na_tot))
-    P_s = (P0_s - omega * (sps.diags(1.0 / d[:m_s]) @ AP0)).tocsr()
+    with monitor.span(f"GAMGProlong L{k}"):
+        own = np.full(n_loc, -1, np.int64)  # P0's column at each row of this rank
+        own[:m_s] = agg + counts[:rank].sum()
+        s_own = np.zeros(n_loc)
+        s_own[:m_s] = 1.0 / np.sqrt(np.bincount(agg, minlength=na).astype(np.float64)[agg]) if m_s else 0.0
 
-    # Galerkin: P_s^T (A_s P), P's rows at the ghost columns from their owners
-    P_rows = sps.vstack([P_s, sps.csr_matrix((n_loc - m_s, na_tot))]).tocsr()
-    need = np.unique(col[ghost])
-    P_ghost = dist_csr.fetch_rows(P_rows, need, mesh)
-    cpos = np.where(ghost, m_s + np.searchsorted(need, col), col - lo)
-    A_c = sps.csr_matrix((coo.data, (coo.row, cpos)), shape=(m_s, m_s + len(need)))
-    contrib = (P_s.T @ (A_c @ sps.vstack([P_s, P_ghost]))).tocoo()
-    n_loc_c = -(-na_tot // mesh.size)
-    r, c, v = dist_csr.ship_triplets(contrib.row.astype(np.int64), contrib.col.astype(np.int64), contrib.data,
-                                     n_loc_c, mesh)
-    Ac_rows = sps.csr_matrix((v, (r - rank * n_loc_c, c)), shape=(n_loc_c, na_tot))  # duplicates summed
-    Ac_rows.eliminate_zeros()
-    pt = P_s.tocoo()
-    r, c, v = dist_csr.ship_triplets(pt.col.astype(np.int64), pt.row.astype(np.int64) + lo, pt.data, n_loc_c, mesh)
-    R_rows = sps.csr_matrix((v, (r - rank * n_loc_c, c)), shape=(n_loc_c, n))
+        # A_s P0, P0's rows at the ghost columns coming through A's scatter;
+        # every ghost slot (padding too) holds its ghost_cols column's value
+        coo = blk.tocoo()
+        col = coo.col.astype(np.int64)
+        ghost = col // A.n_loc_c != rank
+        pos = col - lo
+        if ghost.any():
+            uc, first = np.unique(A.ghost_cols, return_index=True)
+            pos[ghost] = n_loc + first[np.searchsorted(uc, col[ghost])]
+        p0_col = np.concatenate([own, _ghost_values(A, own)])[pos]
+        p0_val = np.concatenate([s_own, _ghost_values(A, s_own)])[pos]
+        AP0 = sps.csr_matrix((coo.data * p0_val, (coo.row, p0_col)), shape=(m_s, na_tot))
+        P0_s = sps.csr_matrix((s_own[:m_s], (np.arange(m_s), own[:m_s])), shape=(m_s, na_tot))
+        P_s = (P0_s - omega * (sps.diags(1.0 / d[:m_s]) @ AP0)).tocsr()
 
-    Pd = dist_csr.dist_aij_from_rows(P_rows, na_tot, mesh, dtype=np_dtype, n_rows=n)
-    Rd = dist_csr.dist_aij_from_rows(R_rows, n, mesh, dtype=np_dtype, n_rows=na_tot)
-    nxt = dist_csr.dist_aij_from_rows(Ac_rows, na_tot, mesh, dtype=np_dtype)
-    return _dist_level(A, Pd, Rd, 1.0 / d, rho, smooth_its, nxt, k), nxt, Ac_rows, own[:m_s]
+        # P's rows at the ghost columns, from their owners
+        P_rows = sps.vstack([P_s, sps.csr_matrix((n_loc - m_s, na_tot))]).tocsr()
+        need = np.unique(col[ghost])
+        P_ghost = dist_csr.fetch_rows(P_rows, need, mesh)
+
+    with monitor.span(f"GAMGGalerkin L{k}"):
+        # P_s^T (A_s P), shipped to the row owners; R's rows (P's, transposed)
+        cpos = np.where(ghost, m_s + np.searchsorted(need, col), col - lo)
+        A_c = sps.csr_matrix((coo.data, (coo.row, cpos)), shape=(m_s, m_s + len(need)))
+        contrib = (P_s.T @ (A_c @ sps.vstack([P_s, P_ghost]))).tocoo()
+        n_loc_c = -(-na_tot // mesh.size)
+        r, c, v = dist_csr.ship_triplets(contrib.row.astype(np.int64), contrib.col.astype(np.int64), contrib.data,
+                                         n_loc_c, mesh)
+        Ac_rows = sps.csr_matrix((v, (r - rank * n_loc_c, c)), shape=(n_loc_c, na_tot))  # duplicates summed
+        Ac_rows.eliminate_zeros()
+        pt = P_s.tocoo()
+        r, c, v = dist_csr.ship_triplets(pt.col.astype(np.int64), pt.row.astype(np.int64) + lo, pt.data, n_loc_c,
+                                         mesh)
+        R_rows = sps.csr_matrix((v, (r - rank * n_loc_c, c)), shape=(n_loc_c, n))
+
+    with monitor.span(f"GAMGLevelBuild L{k}"):
+        Pd = dist_csr.dist_aij_from_rows(P_rows, na_tot, mesh, dtype=np_dtype, n_rows=n)
+        Rd = dist_csr.dist_aij_from_rows(R_rows, n, mesh, dtype=np_dtype, n_rows=na_tot)
+        nxt = dist_csr.dist_aij_from_rows(Ac_rows, na_tot, mesh, dtype=np_dtype)
+        level = _dist_level(A, Pd, Rd, 1.0 / d, rho, smooth_its, nxt, k)
+    return level, nxt, Ac_rows, own[:m_s]
 
 
 def _ghost_values(A, v):
@@ -686,7 +713,10 @@ def dist_amg_pc(
                 )
             rows = cur.to_scipy_rows()
         n = cur.shape[0]
-        cur_sp = dist_csr.gather_scipy_rows(rows, mesh)[:n, :n]
+        _count_level(rows, max(min(cur.n_loc, n - mesh.rank * cur.n_loc), 0))
+        with monitor.span("GAMGCoarseSetUp"):
+            cur_sp = dist_csr.gather_scipy_rows(rows, mesh)[:n, :n]
+            coarse_inv = _padded_coarse_inverse(cur_sp, cur.n_pad, dtype, mesh.device)
     else:
         np_dtype = dist_csr._np_dtype(dtype)
         cur_sp = (a_scipy if a_scipy is not None else A.to_scipy()).tocsr().astype(np.float64)
@@ -703,4 +733,5 @@ def dist_amg_pc(
             ivd[: len(d)] = 1.0 / d
             levels.append(_dist_level(cur, Pd, Rd, mesh.local_rows(ivd), rho, smooth_its, nxt, len(levels)))
             cur, cur_sp = nxt, Ac
-    return DistAMGPC(tuple(levels), _padded_coarse_inverse(cur_sp, cur.n_pad, dtype, mesh.device), mesh, cycles)
+        coarse_inv = _padded_coarse_inverse(cur_sp, cur.n_pad, dtype, mesh.device)
+    return DistAMGPC(tuple(levels), coarse_inv, mesh, cycles)

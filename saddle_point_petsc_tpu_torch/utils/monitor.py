@@ -18,7 +18,12 @@ table, and the -log_view phase timers (the PyTorch side of
   `RN.launches`, `RN.launches.float32`, `RN.launches.float64` of the
   normal draws of estimate_lmax's start vector, one a leaf on the card),
   and solvers/multigrid.py the coarsest levels inverted on the card
-  (`MGCoarse.device`, one a set-up);
+  (`MGCoarse.device`, one a set-up); solvers/amg.py's streaming gamg
+  set-up counts the levels of each hierarchy it builds, the coarsest
+  included, and this rank's rows and entries of their operators
+  (`GAMG.levels`, `GAMG.rows`, `GAMG.nnz`); parallel/dist_csr.py the
+  bytes of host triplets that `ship_triplets` copies to the device and
+  back (`triplets.h2d_bytes`, `triplets.d2h_bytes`);
   parallel/halo.py counts the messages and bytes it posts, and
   `ProcessMesh` its all_reduce and all_to_all calls and bytes when the
   mesh has more than one rank.

@@ -714,6 +714,39 @@ def test_dist_aij_cli_world_of_one_on_card(nccl_world):
     assert _within(d.result.x.cpu(), s.result.x.cpu(), 1e-9)
 
 
+def test_gamg_stream_setup_on_card_matches_cpu(nccl_world):
+    """CG + the streaming gamg set-up on the 5-point Laplacian (128^2 rows,
+    f32) on the card: each level's rows and entries, and the GAMG counters,
+    equal those of the CPU build of the same DistAIJ; the solve launches B3
+    (the banded levels) and B5 (the transfers)."""
+    import dataclasses
+
+    import numpy as np
+    import scipy.sparse as sps
+
+    from saddle_point_petsc_tpu_torch.parallel import dist_csr
+
+    m = 128
+    t = sps.diags([-1.0, 2.0, -1.0], [-1, 0, 1], (m, m))
+    a = (sps.kron(sps.identity(m), t) + sps.kron(t, sps.identity(m))).tocsr()
+    argv = ["-ksp_type", "cg", "-pc_type", "gamg", "-pc_gamg_setup", "stream", "-ksp_rtol", "1e-6"]
+    built = {}
+    for mesh in (dataclasses.replace(nccl_world, device=torch.device("cpu")), nccl_world):
+        A = dist_csr.dist_aij_from_rows(a, m * m, mesh, dtype=np.float32)
+        monitor.reset_counters()
+        ksp = KSP(Options(argv)).set_operators(A).set_from_options().set_up()
+        levels = [(lvl.A.shape[0], lvl.A.to_scipy_rows()[: lvl.A.shape[0]].nnz) for lvl in ksp.M.levels]
+        counts = {k: v for k, v in monitor.counters.items() if k.startswith("GAMG.")}
+        built[mesh.device.type] = (levels, counts, ksp, A)
+    assert built["cuda"][0] == built["cpu"][0] and len(built["cuda"][0]) >= 2
+    assert built["cuda"][1] == built["cpu"][1] and built["cuda"][1]["GAMG.levels"] == len(built["cuda"][0]) + 1
+    _, _, ksp, A = built["cuda"]
+    monitor.reset_counters()
+    res = ksp.solve(torch.ones(A.n_pad, dtype=torch.float32, device=nccl_world.device))
+    assert res.converged_reason > 0
+    assert _launches("B3") > 0 and _launches("B5") > 0
+
+
 # kernel RN (csrc/normal_draw.cu) against its CPU twin: odd sizes, a seed
 # above 32 bits, leaves 0 and 3
 RN_DRAWS = [(1, 0, 0), (3, 7, 3), (1001, (1 << 40) + 11, 0), ((1 << 20) + 7, 2**31 + 5, 3)]

@@ -270,6 +270,73 @@ def test_cli_log_view_and_profile_hold_the_spans(tmp_path, capsys):
 
 
 # ---------------------------------------------------------------------------
+# the distributed gamg's streaming set-up in a world of one
+# ---------------------------------------------------------------------------
+
+GAMG_STREAM = ["-ksp_type", "cg", "-pc_type", "gamg", "-pc_gamg_setup", "stream"]
+GAMG_STEPS = ("GAMGRho", "GAMGAggregate", "GAMGProlong", "GAMGGalerkin", "GAMGLevelBuild")
+
+
+def _stream_setup(world_of_one, m=64):
+    """KSP.set_up of CG + stream gamg on the 5-point Laplacian of an m x m
+    interior grid (66 x 66 nodes), a DistAIJ in a world of one."""
+    import scipy.sparse as sps
+
+    from saddle_point_petsc_tpu_torch.parallel import dist_csr
+
+    t = sps.diags([-1.0, 2.0, -1.0], [-1, 0, 1], (m, m))
+    a = (sps.kron(sps.identity(m), t) + sps.kron(t, sps.identity(m))).tocsr()
+    A = dist_csr.dist_aij_from_rows(a, m * m, dist_csr.make_mesh_1d(device=world_of_one.device))
+    return KSP(Options(GAMG_STREAM)).set_operators(A).set_from_options().set_up()
+
+
+def test_gamg_stream_setup_spans(world_of_one):
+    """Under the profiler each step of each level of the stream set-up is
+    one span named with its level, and the coarsest level's gather and
+    inverse one `GAMGCoarseSetUp`, all under `PCSetUp`."""
+    ksp, spans = _profiled(lambda: _stream_setup(world_of_one))
+    levels = len(ksp.M.levels)
+    assert levels == 2
+    names = [n for n, _ in spans]
+    for step in GAMG_STEPS:
+        for k in range(levels):
+            assert names.count(f"{step} L{k}") == 1, (step, k)
+        assert f"{step} L{levels}" not in names
+    assert names.count("GAMGCoarseSetUp") == 1
+    for name, around in spans:
+        if name.startswith("GAMG"):
+            assert around[:1] == ("PCSetUp",) and not any(o.startswith("GAMG") for o in around), (name, around)
+    # the levels' DistAIJ builds are the set-up's own, not a MatAssembly
+    assert "MatAssembly" not in names
+
+
+def test_gamg_counters_equal_the_hierarchy(world_of_one):
+    """`GAMG.levels`, `GAMG.rows` and `GAMG.nnz` count every level's
+    operator, the coarsest included (its entries: the Galerkin product of
+    the last level's transfers), and a world of one fetches no rows."""
+    monitor.reset_counters()
+    M = _stream_setup(world_of_one).M
+    ops = [lvl.A.to_scipy_rows()[: lvl.A.shape[0]] for lvl in M.levels]
+    last = M.levels[-1]
+    R, A, P = (x.to_scipy().tocsr() for x in (last.R, last.A, last.P))
+    coarse = (R @ (A @ P)).tocsr()
+    coarse.eliminate_zeros()
+    c = monitor.counters
+    assert c["GAMG.levels"] == len(M.levels) + 1
+    assert c["GAMG.rows"] == sum(a.shape[0] for a in ops) + coarse.shape[0]
+    assert c["GAMG.nnz"] == sum(a.nnz for a in ops) + coarse.nnz
+    # the Galerkin triplets went to the device and back; they are all of it
+    assert c["triplets.h2d_bytes"] == c["triplets.d2h_bytes"] > 0
+
+
+def test_gamg_setup_off_the_profiler_records_nothing(world_of_one, monkeypatch):
+    made = []
+    monkeypatch.setattr(torch.profiler, "record_function", lambda name: made.append(name))
+    ksp = _stream_setup(world_of_one)
+    assert ksp.M.levels and made == []
+
+
+# ---------------------------------------------------------------------------
 # the counters on a 2 x 2 gloo world: this file is the worker
 # ---------------------------------------------------------------------------
 
