@@ -28,12 +28,14 @@ adds the off-diag rowsum (B5 on the ghost buffer): interior before halo.
 block; its ELL local block and its off-diag block stay plain PyTorch
 gathers (XLA in the JAX package, outside any Pallas kernel).
 
-Setup is host numpy, as in the JAX package: every rank runs the same
-vectorized plan on the global scipy matrix and keeps its rows, so the
-statics (kd, ko, max_send, the band offsets) are global and every rank's
-shapes agree. `dist_aij_from_rows` builds the same plan from each rank's
-own rows alone (MatCreateMPIAIJWithArrays: the statics reduced over the
-ranks, the ghost requests shipped to their owners), and `fetch_rows`
+`dist_aij_from_scipy`'s setup is host numpy, as in the JAX package: every
+rank runs the same vectorized plan on the global scipy matrix and keeps
+its rows, so the statics (kd, ko, max_send, the band offsets) are global
+and every rank's shapes agree. `dist_aij_from_rows` builds the same plan
+from each rank's own rows alone (MatCreateMPIAIJWithArrays: the statics
+reduced over the ranks, the ghost requests shipped to their owners), as
+torch ops on the mesh's device after one upload of the rows' CSR, and
+`dist_aij_to_dia` finds and scatters the bands there too; `fetch_rows`
 brings a rank the rows it names from their owners: the streaming gamg
 setup (solvers/amg.py) builds every level with them.
 `exchange_triplets` routes COO triplets to their row owners
@@ -288,29 +290,40 @@ def _diag_band_layout(dc, dv, n_loc, n_pad, max_diag_blowup=4.0, max_diags=512):
 def dist_aij_to_dia(A: DistAIJ, max_diag_blowup=4.0, max_diags=512) -> DistAIJ:
     """Attach the banded (DIA) copy of the diag blocks of a DistAIJ.
 
-    Each rank scans its diag block for its band set; the union over the
-    ranks (one all_gather_object) becomes the one offsets tuple of every
-    rank, and each rank keeps its (ndiag, n_loc) bands. Collective; setup.
-    Raises ValueError (on every rank) when the bands would blow storage
-    past `max_diag_blowup` x the diag-block nnz or `max_diags` bands; use
+    Each rank finds its band set on its device from its diag-block ELL;
+    the union over the ranks (one all_gather_object of the offsets) becomes
+    the one offsets tuple of every rank, and each rank scatters its
+    (ndiag, n_loc) bands on its device. Collective; setup. Raises
+    ValueError (on every rank) when the bands would blow storage past
+    `max_diag_blowup` x the diag-block nnz or `max_diags` bands; use
     `local_rcm_permutation` first for band-reducible irregular patterns.
     The ELL arrays are kept (diagonal(), ILU setup, to_scipy); only the
-    products switch.
+    products switch. The offsets are the only download (counted in
+    `aij_build.d2h_bytes`); in a world of one they come down only when
+    the band test passes.
     """
     if A.dia_data is not None:
         return A
     if A.n_pad_col is not None:
         raise ValueError("dist_aij_to_dia: square operators only")
-    dc, dv = _host(A.diag_cols_t).T, _host(A.diag_vals_t).T
-    r, k, off = _band_entries(dc, A.n_loc)
-    mine = (np.unique(off), len(r))
-    parts = [mine]
-    if A.ndev > 1:
+    dc = A.diag_cols_t
+    valid = dc >= 0
+    row = torch.arange(A.n_loc, dtype=dc.dtype, device=dc.device).expand_as(dc)[valid]
+    off = dc[valid].sub_(row)  # each stored entry's band
+    mine = torch.unique(off)
+    if A.ndev == 1:  # the union is this rank's set, whose size needs no download
+        _check_bands(mine, A.n_pad, off.numel(), max_diag_blowup, max_diags)
+        offs = _fetch(mine)
+    else:
         parts = [None] * A.ndev
-        dist.all_gather_object(parts, mine, group=A.mesh.group)
-    offs = np.unique(np.concatenate([p[0] for p in parts]))
-    _check_bands(offs, A.n_pad, sum(p[1] for p in parts), max_diag_blowup, max_diags)
-    data = torch.from_numpy(_band_data(offs, r, k, off, dv, A.n_loc)).to(A.diag_vals_t.device)
+        dist.all_gather_object(parts, (_fetch(mine), off.numel()), group=A.mesh.group)
+        offs = np.unique(np.concatenate([p[0] for p in parts]))
+        _check_bands(offs, A.n_pad, sum(p[1] for p in parts), max_diag_blowup, max_diags)
+        mine = _put(offs.astype(_np_dtype(dc.dtype)), dc.device)
+    flat = torch.searchsorted(mine, off, out_int32=True).to(_index_dtype(len(offs) * A.n_loc))
+    del off
+    data = A.diag_vals_t.new_zeros((len(offs), A.n_loc))
+    data.view(-1)[flat.mul_(A.n_loc).add_(row)] = A.diag_vals_t[valid]  # in place: data is fresh
     return dataclasses.replace(A, dia_data=data, dia_offsets=tuple(int(o) for o in offs))
 
 
@@ -468,9 +481,91 @@ def dist_aij_from_scipy(a, mesh: ProcessMesh, dtype=None, dia="auto") -> DistAIJ
     )
 
 
-def _most(rows):
-    """The largest number of entries in one row (0 for none)."""
-    return int(np.bincount(rows).max()) if len(rows) else 0
+def _fetch(t):
+    """A device tensor on the host, its bytes counted (`aij_build.d2h_bytes`)."""
+    monitor.count("aij_build.d2h_bytes", t.nbytes)
+    return _host(t)
+
+
+def _put(arr, dev):
+    """A host array on `dev`, its bytes counted (`aij_build.h2d_bytes`)."""
+    monitor.count("aij_build.h2d_bytes", arr.nbytes)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+
+def _index_dtype(n):
+    """int32 when indices below n fit it, else int64."""
+    return torch.int32 if n < 2**31 else torch.int64
+
+
+def _ell_pack_t(rows, cols, vals, cnt, k):
+    """Slot-major (k, nrows) ELL arrays of row-major-sorted entries, on
+    their device: an entry's slot is its index less its row's first index,
+    as in `_ell_pack` (whose layout this is, transposed). cnt: the
+    (nrows,) entries of each row; rows and cols int32."""
+    nrows = cnt.numel()
+    out_c = torch.full((k, nrows), -1, dtype=torch.int32, device=cnt.device)
+    out_v = vals.new_zeros((k, nrows))
+    if rows.numel():
+        idx = _index_dtype(k * nrows)
+        first = (torch.cumsum(cnt, 0) - cnt).to(idx)
+        flat = torch.arange(rows.numel(), dtype=idx, device=cnt.device).sub_(first[rows]).mul_(nrows).add_(rows)
+        out_c.view(-1)[flat] = cols  # in place: out_c and out_v are fresh
+        out_v.view(-1)[flat] = vals
+    return out_c, out_v
+
+
+def _aij_from_rows_ell(a, m, n, mesh: ProcessMesh, dtype) -> DistAIJ:
+    """`dist_aij_from_rows`' ELL build from this rank's canonical CSR a,
+    after one upload of its three arrays: the plan runs on the mesh's
+    device (see there). A function of its own so that its temporaries are
+    freed before the bands are built: the build's transient device memory
+    stays under the gamg set-up's peak."""
+    ndev, rank, dev = mesh.size, mesh.rank, mesh.device
+    n_loc, n_loc_c = a.shape[0], -(-n // ndev)
+    lo, lo_c = rank * n_loc, rank * n_loc_c
+    indptr, cols = _put(a.indptr, dev), _put(a.indices, dev)
+    vals = _put(a.data.astype(dtype), dev)
+    rows = torch.repeat_interleave(torch.arange(n_loc, dtype=torch.int32, device=dev), torch.diff(indptr),
+                                   output_size=cols.numel())
+    del indptr
+    if m == n and m - lo < n_loc:  # the identity padding rows
+        pad = torch.arange(max(m - lo, 0), n_loc, dtype=torch.int32, device=dev)
+        rows, cols = torch.cat([rows, pad]), torch.cat([cols, (pad + lo).to(cols.dtype)])
+        vals = torch.cat([vals, vals.new_ones(pad.numel())])
+
+    isdiag = (cols >= lo_c) & (cols < lo_c + n_loc_c)
+    isoff = ~isdiag
+    orow, ocol, oval = rows[isoff], cols[isoff].long(), vals[isoff]
+    if ocol.numel():  # else every entry is the diag block's: no copies
+        rows, cols, vals = rows[isdiag], cols[isdiag], vals[isdiag]
+    del isdiag, isoff
+    cnt_d, cnt_o = torch.bincount(rows, minlength=n_loc), torch.bincount(orow, minlength=n_loc)
+    need, inv = torch.unique(ocol, return_inverse=True)  # this rank's ghost columns, ascending
+    src = need // n_loc_c
+    grp = torch.bincount(src, minlength=ndev)
+    stats = torch.stack([cnt_d.max(), cnt_o.max(), grp.max(), cnt_o.sum()])
+    kd, ko, max_send, any_off = _fetch(mesh.all_reduce(stats, op=dist.ReduceOp.MAX)).tolist()
+    diag_c, diag_v = _ell_pack_t(rows, (cols - lo_c).int(), vals, cnt_d, max(1, kd))
+    del rows, cols, vals
+    if any_off:
+        ko, max_send = max(1, ko), max(1, max_send)
+        ghost = src * max_send + torch.arange(need.numel(), device=dev) - (torch.cumsum(grp, 0) - grp)[src]
+        off_c, off_v = _ell_pack_t(orow, ghost[inv].int(), oval, cnt_o, ko)
+        req = torch.full((ndev * max_send,), -1, dtype=torch.int64, device=dev)
+        req[ghost] = need  # in place: req is fresh
+        asked = mesh.all_to_all(req).reshape(ndev, max_send)
+        send_idx = torch.where(asked >= 0, asked - lo_c, 0)
+        req = _fetch(req).reshape(ndev, max_send)
+        # a padding slot holds the owner's first row, as dist_aij_from_scipy's
+        ghost_cols = np.where(req >= 0, req, np.arange(ndev, dtype=np.int64)[:, None] * n_loc_c).reshape(-1)
+    else:
+        send_idx = torch.zeros((ndev, 1), dtype=torch.int64, device=dev)
+        off_c = torch.full((1, n_loc), -1, dtype=torch.int32, device=dev)
+        off_v = diag_v.new_zeros((1, n_loc))
+        ghost_cols = np.arange(ndev, dtype=np.int64) * n_loc_c
+    return DistAIJ(diag_c, diag_v, off_c, off_v, send_idx, ghost_cols, (m, n), n_loc * ndev, mesh,
+                   n_pad_col=None if m == n else n_loc_c * ndev, has_ghosts=bool(any_off))
 
 
 def dist_aij_from_rows(a_rows, n_cols, mesh: ProcessMesh, dtype=None, dia="auto", n_rows=None) -> DistAIJ:
@@ -482,69 +577,35 @@ def dist_aij_from_rows(a_rows, n_cols, mesh: ProcessMesh, dtype=None, dia="auto"
     dist_aij_from_scipy, columns global ids; square matrices get its
     identity padding rows. dtype and dia as in dist_aij_from_scipy.
 
-    The statics and the plan equal dist_aij_from_scipy's on the matrix the
-    blocks make up, field by field: kd, ko, max_send and whether any rank
-    has an off-diag entry come from one all_reduce MAX, before anything
-    is allocated; each rank asks the owners for its ghost columns,
-    ascending within each owner, in one all_to_all of (world, max_send)
-    ids (-1 past the request), and its send_idx row for a requester is
-    that request in that order; the band test runs over every rank's
-    bands (`dist_aij_to_dia`). Collective; setup.
+    The host makes the block canonical (duplicates summed, columns sorted)
+    and rounds its values to dtype, and the CSR's three arrays go to the
+    mesh's device once; the row ids, the diag/off-diag split, the ELL
+    packs, the ghost plan and the bands are built there. The statics and
+    the plan equal dist_aij_from_scipy's on the matrix the blocks make up,
+    field by field: kd, ko, max_send and whether any rank has an off-diag
+    entry come from one all_reduce MAX, before anything is allocated; each
+    rank asks the owners for its ghost columns, ascending within each
+    owner, in one all_to_all of (world, max_send) ids (-1 past the
+    request), and its send_idx row for a requester is that request in
+    that order; the band test runs over every rank's bands
+    (`dist_aij_to_dia`). The downloads are the statistics, the request
+    (the host's `ghost_cols`) and the band offsets. Counted: the builds
+    (`aij_build.count`) and the bytes up and down (`aij_build.h2d_bytes`,
+    `aij_build.d2h_bytes`). Collective; setup.
     """
     m = n_cols if n_rows is None else n_rows
     n = n_cols
-    ndev, rank, dev = mesh.size, mesh.rank, mesh.device
-    n_loc, n_loc_c = -(-m // ndev), -(-n // ndev)
+    ndev, rank = mesh.size, mesh.rank
+    n_loc = -(-m // ndev)
     a = sps.csr_matrix(a_rows)
     if a.shape[0] != n_loc:
         raise ValueError(f"dist_aij_from_rows: rank {rank} holds {a.shape[0]} rows; {m} rows over {ndev} ranks "
                          f"give {n_loc} a rank")
     a.sum_duplicates()
     a.sort_indices()
-    square = m == n
-    dtype = _np_dtype(dtype or a.dtype)
-    lo = rank * n_loc
-    rows = np.repeat(np.arange(n_loc, dtype=np.int64), np.diff(a.indptr))
-    cols = a.indices.astype(np.int64)
-    vals = a.data.astype(dtype)
-    if square:
-        pad_r = np.arange(max(m - lo, 0), n_loc, dtype=np.int64)
-        rows = np.concatenate([rows, pad_r])
-        cols = np.concatenate([cols, lo + pad_r])
-        vals = np.concatenate([vals, np.ones(len(pad_r), dtype)])
-
-    isdiag = cols // n_loc_c == rank
-    orow, ocol, oval = rows[~isdiag], cols[~isdiag], vals[~isdiag]
-    need = np.unique(ocol)  # this rank's ghost columns, ascending
-    src = need // n_loc_c
-    grp = np.bincount(src, minlength=ndev)
-    stats = torch.tensor([_most(rows[isdiag]), _most(orow), int(grp.max()), len(orow)], dtype=torch.int64,
-                         device=dev)
-    kd, ko, max_send, any_off = mesh.all_reduce(stats, op=dist.ReduceOp.MAX).tolist()
-    diag_cols, diag_vals = _ell_pack(rows[isdiag], (cols[isdiag] % n_loc_c).astype(np.int32), vals[isdiag], n_loc,
-                                     max(1, kd), dtype)
-    if any_off:
-        ko, max_send = max(1, ko), max(1, max_send)
-        slot = np.arange(len(need)) - (np.cumsum(grp) - grp)[src]
-        gidx = (src * max_send + slot)[np.searchsorted(need, ocol)].astype(np.int32)
-        off_cols, off_vals = _ell_pack(orow, gidx, oval, n_loc, ko, dtype)
-        req = np.full((ndev, max_send), -1, np.int64)
-        req[src, slot] = need
-        asked = _host(mesh.all_to_all(torch.from_numpy(req.reshape(-1)).to(dev))).reshape(ndev, max_send)
-        send_idx = np.where(asked >= 0, asked - rank * n_loc_c, 0)
-        # a padding slot holds the owner's first row, as dist_aij_from_scipy's
-        ghost_cols = np.where(req >= 0, req, np.arange(ndev, dtype=np.int64)[:, None] * n_loc_c).reshape(-1)
-    else:
-        send_idx = np.zeros((ndev, 1), np.int64)
-        off_cols, off_vals = np.full((n_loc, 1), -1, np.int32), np.zeros((n_loc, 1), dtype)
-        ghost_cols = np.arange(ndev, dtype=np.int64) * n_loc_c
-
-    def put(arr):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
-
-    A = DistAIJ(put(diag_cols.T), put(diag_vals.T), put(off_cols.T), put(off_vals.T), put(send_idx), ghost_cols,
-                (m, n), n_loc * ndev, mesh, n_pad_col=None if square else n_loc_c * ndev, has_ghosts=bool(any_off))
-    if square and dia in ("auto", "force"):
+    monitor.count("aij_build.count")
+    A = _aij_from_rows_ell(a, m, n, mesh, _np_dtype(dtype or a.dtype))
+    if m == n and dia in ("auto", "force"):
         try:
             A = dist_aij_to_dia(A, max_diag_blowup=2.0 if dia == "auto" else 4.0)
         except ValueError:

@@ -23,7 +23,10 @@ table, and the -log_view phase timers (the PyTorch side of
   included, and this rank's rows and entries of their operators
   (`GAMG.levels`, `GAMG.rows`, `GAMG.nnz`); parallel/dist_csr.py the
   bytes of host triplets that `ship_triplets` copies to the device and
-  back (`triplets.h2d_bytes`, `triplets.d2h_bytes`);
+  back (`triplets.h2d_bytes`, `triplets.d2h_bytes`), and the DistAIJ
+  builds of `dist_aij_from_rows` with the bytes they and
+  `dist_aij_to_dia` copy to the device and back (`aij_build.count`,
+  `aij_build.h2d_bytes`, `aij_build.d2h_bytes`);
   parallel/halo.py counts the messages and bytes it posts, and
   `ProcessMesh` its all_reduce and all_to_all calls and bytes when the
   mesh has more than one rank.

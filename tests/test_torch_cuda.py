@@ -747,6 +747,58 @@ def test_gamg_stream_setup_on_card_matches_cpu(nccl_world):
     assert _launches("B3") > 0 and _launches("B5") > 0
 
 
+# the device memory the gamg cell's set-up holds at its peak (PERF.md §4)
+GAMG_CELL_PEAK_BYTES = 422_022_144
+
+
+def test_dist_aij_build_on_card_matches_cpu(nccl_world):
+    """The gamg cell's DistAIJ builds on the card, from the 1,048,576-row
+    5-point operator's rows and its first level's P, R and Ac rows, equal
+    the same builds on the CPU mesh from the same rows, field by field and
+    bit for bit; the first level built from each operator counts the same
+    `GAMG.*`; the operator's build stays under the cell's set-up peak in
+    device memory."""
+    import dataclasses
+
+    import numpy as np
+    import scipy.sparse as sps
+
+    from saddle_point_petsc_tpu_torch.parallel import dist_csr
+
+    m = 1024
+    t = sps.diags([-1.0, 2.0, -1.0], [-1, 0, 1], (m, m))
+    a = (sps.kron(sps.identity(m), t) + sps.kron(t, sps.identity(m))).tocsr()
+    cpu = dataclasses.replace(nccl_world, device=torch.device("cpu"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    A = dist_csr.dist_aij_from_rows(a, m * m, nccl_world, dtype=np.float32)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before < GAMG_CELL_PEAK_BYTES and A.dia_data is not None
+    A_cpu = dist_csr.dist_aij_from_rows(a, m * m, cpu, dtype=np.float32)
+    counts = {}
+    for op in (A_cpu, A):
+        monitor.reset_counters()
+        level, Ac, Ac_rows, _ = amg._dist_amg_stream_level(op, 0.08, 2)
+        counts[op.mesh.device.type] = {k: v for k, v in monitor.counters.items() if k.startswith("GAMG.")}
+    assert counts["cuda"] == counts["cpu"] and counts["cpu"]["GAMG.levels"] == 1
+    n, na = m * m, Ac.shape[0]
+    builds = [(a, n, None), (level.P.to_scipy_rows(), na, n), (level.R.to_scipy_rows(), n, na), (Ac_rows, na, None)]
+    fields = ("diag_cols_t", "diag_vals_t", "off_cols_t", "off_vals_t", "send_idx", "dia_data", "ghost_cols",
+              "dia_offsets", "shape", "n_pad", "n_pad_col", "has_ghosts")
+    for k, (rows, n_cols, n_rows) in enumerate(builds):
+        got = A if k == 0 else dist_csr.dist_aij_from_rows(rows, n_cols, nccl_world, dtype=np.float32, n_rows=n_rows)
+        want = A_cpu if k == 0 else dist_csr.dist_aij_from_rows(rows, n_cols, cpu, dtype=np.float32, n_rows=n_rows)
+        for f in fields:
+            g, w = getattr(got, f), getattr(want, f)
+            if isinstance(w, torch.Tensor):
+                assert g.is_cuda and g.dtype == w.dtype and torch.equal(g.cpu(), w), (k, f)
+            elif isinstance(w, np.ndarray):
+                assert g.dtype == w.dtype and np.array_equal(g, w), (k, f)
+            else:
+                assert g == w, (k, f, g, w)
+
+
 # kernel RN (csrc/normal_draw.cu) against its CPU twin: odd sizes, a seed
 # above 32 bits, leaves 0 and 3
 RN_DRAWS = [(1, 0, 0), (3, 7, 3), (1001, (1 << 40) + 11, 0), ((1 << 20) + 7, 2**31 + 5, 3)]

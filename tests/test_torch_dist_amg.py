@@ -15,8 +15,10 @@ saddle_point_petsc_tpu_torch.cli -dist -mat_type aij -pc_type gamg`
 processes against the JAX library on make_mesh_1d(4).
 
 Tolerances:
-- dist_aij_from_rows's plan and statics equal dist_aij_from_scipy's
-  exactly; fetch_rows returns the owners' rows exactly;
+- dist_aij_from_rows's plan and statics (built on the mesh's device)
+  equal dist_aij_from_scipy's (the host plan) exactly, field by field,
+  values in f64 and f32, or both raise the same ValueError on every rank;
+  fetch_rows returns the owners' rows exactly;
 - the global setup: each rank's rows of every level's A, P and R equal the
   JAX shards to 1e-13 of their largest entry (the same host numpy on the
   same inputs); the smoother bounds to 1e-13;
@@ -53,7 +55,21 @@ from saddle_point_petsc_tpu_torch.parallel import mesh as pmesh
 WORLD = 4
 PLAN_FIELDS = ("diag_cols_t", "diag_vals_t", "off_cols_t", "off_vals_t", "send_idx", "dia_data", "ghost_cols",
                "dia_offsets", "shape", "n_pad", "n_pad_col", "has_ghosts")
-FROM_ROWS = ("rand5", "q1", "q1_ell", "rect", "nooff")
+# dist_aij_from_rows against dist_aij_from_scipy: case -> (matrix, dia, dtype)
+FROM_ROWS = {
+    "rand5": ("rand5", "auto", None),
+    "q1": ("q1", "auto", None),
+    "q1_ell": ("q1", "off", None),
+    "rect": ("rect", "auto", None),  # P-shaped: more rows than columns
+    "nooff": ("nooff", "auto", None),
+    "rand5_f32": ("rand5", "auto", "float32"),
+    "q1_force_f32": ("q1", "force", "float32"),
+    "rect_t_f32": ("rect_t", "auto", "float32"),  # R-shaped: fewer rows than columns
+    "short": ("short", "auto", None),  # 9 rows: the last rank holds padding rows alone
+    "short_rect_f32": ("short_rect", "auto", "float32"),  # 9 rows: the last rank holds none
+    "irregular": ("irregular", "auto", None),  # the band test fails: ELL
+    "irregular_force": ("irregular", "force", None),  # ... and raises on every rank
+}
 SETUPS = ("global", "stream")
 CLI_OPTS = ["-mat_type", "aij", "-da_grid_x", "33", "-da_grid_y", "25", "-ksp_type", "cg", "-pc_type", "gamg",
             "-ksp_rtol", "1e-8", "-ksp_converged_reason"]
@@ -106,12 +122,19 @@ def _worker(inp_path, out_path):
     def rows(t):  # the global vector, gathered
         return pmesh.gather_rows(t, m).numpy()
 
+    def plan_or_error(build):
+        try:
+            return plan(build())
+        except ValueError as e:
+            return str(e)
+
     # (a) dist_aij_from_rows against dist_aij_from_scipy
-    for name in FROM_ROWS:
-        a, dia = inp["q1"] if name == "q1_ell" else inp[name], "off" if name == "q1_ell" else "auto"
-        me[f"plan_{name}"] = (plan(dc.dist_aij_from_scipy(a, m, dia=dia)),
-                              plan(dc.dist_aij_from_rows(_my_rows(a, m.rank), a.shape[1], m, dia=dia,
-                                                         n_rows=a.shape[0])))
+    for name, (key, dia, dtype) in FROM_ROWS.items():
+        a = inp[key]
+        me[f"plan_{name}"] = (
+            plan_or_error(lambda: dc.dist_aij_from_scipy(a, m, dtype=dtype, dia=dia)),
+            plan_or_error(lambda: dc.dist_aij_from_rows(_my_rows(a, m.rank), a.shape[1], m, dtype=dtype, dia=dia,
+                                                        n_rows=a.shape[0])))
     # (b) fetch_rows
     for name in ("rand5", "rect"):
         me[f"fetch_{name}"] = dc.fetch_rows(_my_rows(inp[name], m.rank), inp[f"want_{name}"][m.rank], m)
@@ -226,7 +249,10 @@ def inputs():
     perm = rng.permutation(split.shape[0])
     split = split[perm][:, perm].tocsr()
     return {
-        "rand5": rand5, "q1": q1, "rect": rect, "nooff": nooff,
+        "rand5": rand5, "q1": q1, "rect": rect, "nooff": nooff, "rect_t": rect.T.tocsr(), "short": poisson2d(3),
+        "short_rect": sps.random(9, 30, density=0.4, random_state=np.random.RandomState(5), format="csr"),
+        "irregular": (sps.random(64, 64, density=0.3, random_state=np.random.RandomState(6))
+                      + sps.identity(64)).tocsr(),
         "want_rand5": [rng.choice(63, size=k, replace=False) for k in (5, 0, 63, 17)],
         "want_rect": [rng.choice(50, size=k, replace=False) for k in (9, 50, 1, 0)],
         "a40": poisson2d(40), "b40": rng.standard_normal(1600),
@@ -294,10 +320,20 @@ def _rel_equal(got, want, tol, what):
 
 @pytest.mark.parametrize("name", FROM_ROWS)
 def test_from_rows_plan_equals_from_scipy(world, name):
-    """Every rank's plan and statics built from its own rows equal those
-    dist_aij_from_scipy builds from the global matrix, field by field."""
+    """Every rank's plan and statics built from its own rows on the mesh's
+    device equal those dist_aij_from_scipy builds on the host from the
+    global matrix, field by field and bit for bit; where the band test
+    fails under dia="force", both raise the same ValueError on every
+    rank."""
+    mat, dia, dtype = FROM_ROWS[name]
+    if name == "irregular_force":
+        for w in world:
+            ref, got = w[f"plan_{name}"]
+            assert isinstance(ref, str) and got == ref and "diag bands" in ref
+        return
     for rank, w in enumerate(world):
         ref, got = w[f"plan_{name}"]
+        assert ref["diag_vals_t"].dtype == np.dtype(dtype or "float64"), rank
         for key, want in ref.items():
             if isinstance(want, np.ndarray):
                 assert got[key].shape == want.shape and got[key].dtype == want.dtype, (rank, key)
@@ -305,9 +341,11 @@ def test_from_rows_plan_equals_from_scipy(world, name):
             else:
                 assert got[key] == want, (rank, key, got[key], want)
     ref = world[0][f"plan_{name}"][0]
-    assert ref["has_ghosts"] == (name != "nooff")
-    if name.startswith("q1"):
-        assert (ref["dia_data"] is not None) == (name == "q1")
+    assert ref["has_ghosts"] == (mat != "nooff")
+    if mat in ("q1", "irregular"):
+        assert (ref["dia_data"] is not None) == (mat == "q1" and dia != "off")
+    if mat.startswith("short"):  # 3 rows a rank: the last rank's, 9-11, are all padding
+        assert ref["n_pad"] == 12
 
 
 @pytest.mark.parametrize("name", ["rand5", "rect"])

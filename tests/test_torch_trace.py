@@ -329,6 +329,29 @@ def test_gamg_counters_equal_the_hierarchy(world_of_one):
     assert c["triplets.h2d_bytes"] == c["triplets.d2h_bytes"] > 0
 
 
+def test_gamg_stream_setup_counts_its_dist_aij_builds(world_of_one, monkeypatch):
+    """`aij_build.count` counts the operator's own build and then P, R and
+    Ac a level; in a world of one each build downloads under 1 KiB (its
+    statistics and band offsets) and uploads its CSR's arrays."""
+    from saddle_point_petsc_tpu_torch.parallel import dist_csr
+
+    real, moved = dist_csr.dist_aij_from_rows, []
+
+    def build(*args, **kwargs):
+        before = [monitor.counters.get(f"aij_build.{k}", 0) for k in ("d2h_bytes", "h2d_bytes")]
+        out = real(*args, **kwargs)
+        moved.append([monitor.counters[f"aij_build.{k}"] - b for k, b in zip(("d2h_bytes", "h2d_bytes"), before)])
+        return out
+
+    monkeypatch.setattr(dist_csr, "dist_aij_from_rows", build)
+    monitor.reset_counters()
+    M = _stream_setup(world_of_one).M
+    c = monitor.counters
+    assert c["aij_build.count"] == len(moved) == 1 + 3 * (c["GAMG.levels"] - 1) == 1 + 3 * len(M.levels)
+    assert all(0 < down < 1024 and up > 0 for down, up in moved), moved
+    assert c["aij_build.d2h_bytes"] == sum(down for down, _ in moved)
+
+
 def test_gamg_setup_off_the_profiler_records_nothing(world_of_one, monkeypatch):
     made = []
     monkeypatch.setattr(torch.profiler, "record_function", lambda name: made.append(name))
